@@ -1,4 +1,4 @@
-"""tpu-cholesky: a TPU-native dense linear algebra library (JAX/Pallas).
+"""cholesky_tpu: a dense linear algebra library in JAX, for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of the CUDA ``cuda-cholesky``
 reference library (see SURVEY.md): blocked Cholesky factorization (POTRF),
@@ -6,21 +6,25 @@ triangular inverse (TRTRI), triangular square (LAUUM), SPD/HPD inverse
 (POTRI), and log-determinant (LOGDET), layered on Level-3 BLAS tiles
 (GEMM / SYRK / HERK / TRMM / TRSM), in four precisions:
 
-  s = float32        (native MXU)
-  d = float64        (XLA software f64 on TPU; fast float-float Pallas path)
-  c = complex64      (native; split re/im Pallas tiles on the fast path)
-  z = complex128     (emulated via split re/im float64 — the TPU compiler
-                      cannot lower complex128 matmuls)
+  s = float32        (FP32 products: ``config.matmul_precision`` is HIGHEST,
+                      since XLA's default f32 matmul on the GPU may run in
+                      TF32)
+  d = float64        (native FP64; ``backend='ozaki'`` computes products as
+                      exact int8 slices)
+  c = complex64      (native; ``backend='embed'`` uses the real embedding)
+  z = complex128     (native; same)
 
 The reference's three tiers (CPU / single-GPU hybrid / multi-GPU task pool,
-include/blas.h:29-34 in the reference) map to three TPU-native tiers:
+include/blas.h:29-34 in the reference) map to three tiers:
 
   ``*_ref``            pure-jnp reference implementations (the oracle tier,
                        analogous to the reference's CPU tier, blas/*.c)
-  top-level ops        blocked drivers over Pallas MXU tile kernels
+  top-level ops        recursive blocked drivers over XLA tiles: cuBLAS
+                       GEMMs and cuSOLVER/cuBLAS diagonal-block leaves
                        (analogous to the cu* single-GPU tier)
-  ``parallel.*``       shard_map block-cyclic multi-chip tier over an ICI
-                       mesh (analogous to the cuMultiGPU* tier)
+  ``parallel.*``       shard_map block-cyclic multi-device tier whose
+                       collectives XLA hands to NCCL (analogous to the
+                       cuMultiGPU* tier)
 """
 
 from cholesky_tpu.types import Side, Uplo, Trans, Diag

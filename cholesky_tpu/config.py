@@ -2,39 +2,25 @@
 
 The reference's configuration mechanisms (SURVEY.md §5) map as:
 - build-time autotuned include/config.h (block sizes, PCIe cost model)
-  → the tuning table in cholesky_tpu/tuning/ (see tuning/table.py);
-- compile-time kernel template parameters → Pallas block-shape arguments;
+  → fixed leaf block sizes on the tile backends (ops/blocked.py), since
+  cuBLAS/cuSOLVER pick their own kernels for every call;
 - global function-pointer hooks → utils/errors.py.
 
-This module holds the runtime knobs that have no reference analog because
-they are TPU-specific.
+This module holds the one numerical knob the reference has no analog for:
+the precision of f32 matrix products.
 """
 
 from __future__ import annotations
 
-import jax
 from jax import lax
 
-#: Matmul precision for f32 operands. TPU MXUs natively multiply in
-#: bfloat16; XLA's *default* f32 matmul is a single bf16 pass with
-#: ~2^-8 relative error — catastrophic for a linear algebra library.
-#: HIGHEST requests full f32-accurate multi-pass multiplication.
-#: (f64/complex128 paths are software-emulated and unaffected.)
+#: Matmul precision for f32 operands. On the GPU, XLA's *default* f32
+#: matmul may run in TF32 (a 10-bit mantissa, ~1e-3 relative error) —
+#: catastrophic for a linear algebra library. HIGHEST requests full FP32
+#: products (no TF32). f64/complex128 paths are unaffected.
 matmul_precision = lax.Precision.HIGHEST
 
 
 def set_matmul_precision(p) -> None:
     global matmul_precision
     matmul_precision = p
-
-
-def on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-#: Pallas kernels run in interpret mode automatically when the default
-#: backend is not a TPU (e.g. the CPU test mesh) — the analog of the
-#: reference's sequential runtime as a deterministic stand-in
-#: (multigpu/multigpu_seq.c).
-def pallas_interpret() -> bool:
-    return not on_tpu()

@@ -4,11 +4,11 @@ The reference is a thesis numerical library with no application layer; its
 motivating workload is the GP-marginal-likelihood style pipeline its README
 and logdet routine point at (reference lapack/slogdet.c — "log-determinant
 of the Cholesky diagonal", the GP-likelihood term). This module is that
-workload built on the TPU library's own primitives:
+workload built on the library's own primitives:
 
     NLL(θ) = ½ yᵀK⁻¹y + ½ log|K| + n/2·log 2π,   K = k_θ(X,X) + σₙ²I
 
-- factorization:        ops potrf (Pallas blocked driver)
+- factorization:        ops potrf (blocked driver)
 - solves:               ops trsm twice through the factor
 - log-determinant:      logdet_from_factor
 - gradients:            the exact closed form

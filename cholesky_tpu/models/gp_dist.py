@@ -23,7 +23,6 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from cholesky_tpu.utils import vma
 from cholesky_tpu import config
 from cholesky_tpu.models.gp import GPParams, _kmatrix, _sqdist
 from cholesky_tpu.parallel import blockcyclic
@@ -87,8 +86,7 @@ def make_gp_train_step(mesh: Mesh, n_train: int, n_features: int,
     factor_solve_sm = jax.shard_map(
         factor_solve, mesh=mesh,
         in_specs=(P("dp", "mp", None, None), P("dp", None, None)),
-        out_specs=(P("dp", None, None), P("dp"), P("dp")),
-        check_vma=vma.checker_on())
+        out_specs=(P("dp", None, None), P("dp"), P("dp")))
 
     def step(params: GPParams, X, y, probes):
         B, n, _ = X.shape
@@ -106,7 +104,8 @@ def make_gp_train_step(mesh: Mesh, n_train: int, n_features: int,
         alpha = sol[:, :, 0]                                # (B, n) = K⁻¹y
         U = sol[:, :, 1:]                                   # (B, n, np) K⁻¹z
 
-        quad = jnp.einsum("bn,bn->b", y, alpha)
+        quad = jnp.einsum("bn,bn->b", y, alpha,
+                          precision=config.matmul_precision)
         nll = 0.5 * (quad + ld + n * jnp.log(2.0 * jnp.pi))
 
         # per-θ kernel derivative actions (data-parallel over dp)
@@ -121,18 +120,24 @@ def make_gp_train_step(mesh: Mesh, n_train: int, n_features: int,
             # ½[tr(K⁻¹dK) − αᵀdKα];  trace via Hutchinson probes
             dKz = jnp.einsum("bnm,bmp->bnp", dK, probes,
                              precision=config.matmul_precision)
-            tr = jnp.mean(jnp.einsum("bnp,bnp->bp", U, dKz), axis=1)
+            tr = jnp.mean(jnp.einsum("bnp,bnp->bp", U, dKz,
+                                     precision=config.matmul_precision),
+                          axis=1)
             dKa = jnp.einsum("bnm,bm->bn", dK, alpha,
                              precision=config.matmul_precision)
-            qa = jnp.einsum("bn,bn->b", alpha, dKa)
+            qa = jnp.einsum("bn,bn->b", alpha, dKa,
+                            precision=config.matmul_precision)
             return 0.5 * (tr - qa)
 
         g_amp = grad_of(dKs["amp"])
         g_len = grad_of(dKs["len"])
         # noise: dK = 2σₙ²·I → tr(K⁻¹dK) via probes, αᵀα exact
-        tr_n = jnp.mean(jnp.einsum("bnp,bnp->bp", U, probes), axis=1)
-        g_noise = 0.5 * (tr_n - jnp.einsum("bn,bn->b", alpha, alpha)) \
-            * 2.0 * noise
+        tr_n = jnp.mean(jnp.einsum("bnp,bnp->bp", U, probes,
+                                   precision=config.matmul_precision),
+                        axis=1)
+        aa = jnp.einsum("bn,bn->b", alpha, alpha,
+                        precision=config.matmul_precision)
+        g_noise = 0.5 * (tr_n - aa) * 2.0 * noise
 
         grads = GPParams(jnp.mean(g_amp), jnp.mean(g_len), jnp.mean(g_noise))
         new = GPParams(*(pp - lr * gg for pp, gg in zip(params, grads)))

@@ -1,13 +1,16 @@
 """Public dtype-dispatched API.
 
-Routes each routine to the best available tier for the operand dtype and
-backend. Tiers (lowest to highest performance):
+Routes each routine to a tier by the ``backend`` argument:
 
   'ref'     pure-jnp oracle implementations (ops/blas_ref.py, lapack_ref.py)
-  'xla'     blocked drivers over XLA-native matmuls (ops/blocked.py)
-  'pallas'  blocked drivers over hand-written Pallas MXU tile kernels
+  'xla'     blocked drivers over XLA matmuls and device solvers
+            (ops/blocked.py)
+  'ozaki'   the blocked drivers with f64 matmuls as exact int8-slice
+            products (ops/ozaki.py)
+  'embed'   complex operands through the real embedding
+            (ops/complex_embed.py)
 
-'auto' (default) picks per dtype/platform; see ops/dispatch.py.
+'auto' (default) is 'xla' for every dtype; see ops/dispatch.py.
 """
 
 from __future__ import annotations

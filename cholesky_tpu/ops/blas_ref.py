@@ -1,6 +1,6 @@
 """Reference (oracle) Level-3 BLAS tier — pure jnp, all four precisions.
 
-This is the TPU rebuild's analog of the reference's CPU tier (reference
+This is the rebuild's analog of the reference's CPU tier (reference
 blas/sgemm.c:34-146, ssyrk.c:34, strmm.c, strsm.c — OpenMP loops over output
 columns): a single dtype-generic source instead of four sed-generated copies
 (reference single2double.sh / complex2doublecomplex.sh).
@@ -16,7 +16,7 @@ Semantics notes vs the reference:
 - All matrices are 2-D jnp arrays; there is no ``lda`` (XLA owns layout).
 
 These implementations are deliberately simple and obviously correct — they
-are the oracle that the Pallas tier is tested against, the same role as the
+are the oracle that the blocked tier is tested against, the same role as the
 reference's ``test/blas/ref/*_ref.c`` naive loops (compiled -O0 there).
 """
 

@@ -1,4 +1,4 @@
-"""Blocked single-chip drivers: recursive POTRF/TRTRI/LAUUM/POTRI/TRSM/TRMM.
+"""Blocked single-device drivers: recursive POTRF/TRTRI/LAUUM/POTRI/TRSM/TRMM.
 
 This is the analog of the reference's cu* single-GPU hybrid tier
 (reference lapack/spotrf.c:261-398, strtri.c:369-472, slauum.c:197-305),
@@ -6,23 +6,25 @@ re-designed for XLA's compilation model:
 
 - The reference's *iterative* block-column loop with stream overlap becomes
   *recursive* halving: every level splits the matrix in two, so the trailing
-  updates are the largest possible GEMM/SYRK calls (MXU-friendly) and only
-  O(log n) distinct shapes are compiled. Overlap is XLA's job (it pipelines
-  independent ops inside one compiled program), not hand-managed streams.
-- The reference's CPU-diagonal-block trick with the *inverse* substitution
+  updates are the largest possible GEMM/SYRK calls (XLA hands them to
+  cuBLAS) and only O(log n) distinct shapes are compiled. Overlap is XLA's
+  job (it schedules independent ops inside one compiled program), not
+  hand-managed streams.
+- The reference's diagonal-block trick with the *inverse* substitution
   (factor the diagonal block, invert it, replace the panel TRSM by a TRMM —
   reference hybridSpotrf spotrf.c:207-259, the thesis contribution) is kept
-  in full: the TRSM recursion bottoms out in an in-VMEM trti2 kernel and a
-  GEMM by the inverse, which turns all solves into matmuls.
+  at the leaves: the diagonal block is factored and inverted ON THE DEVICE
+  (cuSOLVER potrf + cuBLAS trsm), and the TRSM recursion bottoms out in a
+  GEMM by that inverse, which turns all solves into matmuls.
 - Matrices are padded to a block-size multiple with an identity diagonal
   block (exact for potrf/trtri/lauum/trsm/trmm), replacing the reference's
   runtime cleanup-tile logic.
 
 Tile backends:
-  'xla'     jnp matmuls at HIGHEST precision + oracle-tier leaf sweeps;
-            supports all four precisions (f64/c64/c128 compute paths).
-  'pallas'  hand-written Pallas MXU kernels (f32): ops/pallas/*.
-  'auto'    pallas for f32, xla otherwise.
+  'xla'     XLA matmuls at ``config.matmul_precision`` + library-solver
+            leaves (_XlaTiles); every dtype.
+  'ozaki'   f64 matmuls as exact int8-slice products (ops/ozaki.py).
+  'auto'    'xla' for every dtype.
 
 Upper-triangle cases are canonicalized to lower via conjugate transposition
 (valid because only the selected triangle of the input is referenced), and
@@ -32,11 +34,8 @@ matching the reference's storage semantics.
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -47,67 +46,42 @@ from cholesky_tpu.types import (
 )
 from cholesky_tpu.utils.errors import check
 from cholesky_tpu.ops import blas_ref, lapack_ref
-from cholesky_tpu.ops.pallas import gemm as _pg
-from cholesky_tpu.ops.pallas import syrk as _ps
-from cholesky_tpu.ops.pallas import leaf as _pl
-from cholesky_tpu.ops.pallas import mega as _pm
-
-
-def _mega_ok(n: int, op: str = "potrf") -> bool:
-    """Can the whole-factorization mega-kernels take this block?
-    n ≤ 1024 runs all-in-VMEM; above that, 128-row panels stream through
-    VMEM with the matrix in HBM (ops/pallas/mega.py) up to the smaller of
-    the kernel's hard cap (POTRF_HBM_MAX_N / HBM_MAX_N) and the per-device
-    tuned crossover ``{potrf,trtri}_f32.mega_max_n`` — above the crossover
-    the blocked recursion over mega leaves wins (autotuned on-chip,
-    tools/autotune.py)."""
-    if n <= _pm.MAX_N:
-        return 0 < n and (n <= _pm.NB or n % _pm.NB == 0)
-    from cholesky_tpu.tuning import get_params
-    hard = {"potrf": _pm.POTRF_HBM_MAX_N,
-            "trtri": _pm.TRTRI_HBM_MAX_N,
-            "lauum": _pm.LAUUM_HBM_MAX_N}.get(op, _pm.HBM_MAX_N)
-    cap = min(hard, int(get_params(f"{op}_f32").get("mega_max_n", hard)))
-    return n <= cap and n % _pm.NB == 0
+from cholesky_tpu.ops.dispatch import _resolve
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-# Force the Ozaki hoisted-peel recursions on (True) / off (False)
-# regardless of problem size — A/B probes (tools/probe_dhoist.py) and
-# tests use this; None = resolve per driver call via _ozaki_hoist.
-_OZAKI_HOIST_OVERRIDE: Optional[bool] = None
-
-
-def _ozaki_hoist(n: Optional[int], op: str = "potrf") -> bool:
-    """Should this driver call use the hoisted-peel Ozaki recursions
-    (_OzakiTiles.trsm_*/trtri_lower/syrk_ln single-peel)?
-
-    Same-day A/B on-chip (tools/probe_dhoist.py,
-    bench_results/dhoist_ab_r5.json): the hoisted bundle LOSES at mid
-    sizes (dpotrf@6144 2375 GF/s vs 2873 prehoist) and WINS at large
-    ones (@8192 3449 vs 2805, 1.23x) — gated by the tuned
-    ``ozaki_f64.hoist_min_n`` threshold (per-op override
-    ``hoist_min_n_<op>``) so each driver call picks the measured-faster
-    variant for its size."""
-    if _OZAKI_HOIST_OVERRIDE is not None:
-        return bool(_OZAKI_HOIST_OVERRIDE)
-    if n is None:
-        return True
-    from cholesky_tpu.tuning import get_params
-    p = get_params("ozaki_f64")
-    return n >= int(p.get(f"hoist_min_n_{op}", p.get("hoist_min_n", 0)))
-
-
 # ---------------------------------------------------------------------------
 # Tile backends
 # ---------------------------------------------------------------------------
 
+def _zero_info(A):
+    """int32 zero carrying A's varying mesh axes, so both branches of a
+    leaf's rescue ``lax.cond`` agree under ``shard_map``'s vma checker.
+    (XLA converts a NaN to 0, and the callers only take this branch when
+    the leaf result is finite anyway.)"""
+    return (A[0, 0].real * 0).astype(jnp.int32)
+
+
 class _XlaTiles:
-    """Generic-dtype tiles over XLA matmuls (full f32 precision)."""
-    default_nb = 128
+    """Generic-dtype tiles over XLA: matmuls at ``config.matmul_precision``
+    (cuBLAS on the GPU; HIGHEST keeps f32 out of TF32), and nb×nb leaves
+    through the device's dense solvers — ``lax.linalg.cholesky`` (cuSOLVER
+    potrf) and ``lax.linalg.triangular_solve`` (cuBLAS trsm), the on-device
+    form of the reference's host-LAPACK diagonal block.
+
+    cuSOLVER reports a failed factorization only as non-finite output, so
+    the potf2 leaf re-runs the oracle column sweep (lapack_ref) under
+    ``lax.cond`` when its result is not finite: that branch supplies the
+    1-based ``info`` and the freeze-at-first-failure output, and runs only
+    for a failing leaf. The trti2 leaf needs no such branch: its ``info``
+    is the first zero pivot, read off the diagonal.
+
+    default_nb = 256: inside a full potrf at n=16384 on an H100 it beat
+    nb=128 in run time and compile time (PERF.md)."""
+    default_nb = 256
 
     def __init__(self, dtype):
         self.dtype = jnp.dtype(dtype)
@@ -130,115 +104,68 @@ class _XlaTiles:
 
     def syrk_ln(self, alpha, A, beta, C):
         # full symmetric product; only the lower triangle is contractually
-        # valid (XLA cannot exploit the symmetry anyway)
+        # valid (XLA cannot exploit the symmetry)
         conj = A.conj() if is_complex(self.dtype) else A
         return self.mm(A, conj, tb="T", alpha=alpha, beta=beta, C=C)
 
     def potf2(self, A):
-        L, info = lapack_ref.potf2(Uplo.LOWER, A)
-        n = A.shape[0]
-        return jnp.tril(L), info
+        # symmetrize_input=False: only the lower triangle may be read
+        L = jnp.tril(lax.linalg.cholesky(A, symmetrize_input=False))
+
+        def sweep(_):
+            F, info = lapack_ref.potf2(Uplo.LOWER, A)
+            return jnp.tril(F), info
+
+        return lax.cond(jnp.all(jnp.isfinite(L)),
+                        lambda _: (L, _zero_info(A)), sweep, None)
 
     def trti2(self, A, *, unit=False):
-        T, info = lapack_ref.trti2(
-            Uplo.LOWER, Diag.UNIT if unit else Diag.NON_UNIT, A)
+        n = A.shape[0]
+        d = jnp.diag(A)
         if unit:
-            T = jnp.tril(T, -1) + jnp.diag(jnp.diag(A))
+            info = _zero_info(A)
         else:
-            T = jnp.tril(T)
-        return T, info
+            # info = first exactly-zero pivot (1-based), as lapack_ref.trti2
+            # reports it; like that sweep, invert with 1 in its place so the
+            # output stays finite
+            zero = d == 0
+            info = jnp.where(jnp.any(zero), jnp.argmax(zero) + 1,
+                             _zero_info(A)).astype(jnp.int32)
+            A = A + jnp.diag(jnp.where(zero, 1, 0).astype(A.dtype))
+        W = lax.linalg.triangular_solve(A, jnp.eye(n, dtype=A.dtype),
+                                        left_side=True, lower=True,
+                                        unit_diagonal=unit)
+        if unit:
+            # LAPACK contract: unit diagonal entries pass through untouched
+            return jnp.tril(W, -1) + jnp.diag(d), info
+        return jnp.tril(W), info
 
     def lauu2(self, A):
-        return lapack_ref.lauu2(Uplo.LOWER, A)
-
-
-def _potf2_inverse_leaf() -> bool:
-    """Should the Ozaki potf2 refinement compute G = W·R·Wᵀ via the
-    Newton trtri inverse instead of two XLA substitution solves?
-    ``CHOLESKY_TPU_POTF2_INV=1/0`` overrides (trace time).  Default OFF —
-    measured LOSS on-chip (bench_results/potf2_leaf_probe.json: 0.996x
-    @1024, 0.916x @2048, identical residuals): XLA's TriangularSolve is
-    not on the dpotrf critical path, so the extra trtri kernel + two full
-    matmuls only add work.  Kept as a guarded experiment + regression
-    probe for future XLA/backend changes."""
-    v = os.environ.get("CHOLESKY_TPU_POTF2_INV")
-    if v is not None:
-        return v not in ("0", "false", "")
-    return False
-
-
-class _PallasTiles:
-    """f32 tiles over hand-written Pallas MXU kernels."""
-    dtype = jnp.dtype(jnp.float32)
-
-    @property
-    def default_nb(self) -> int:
-        from cholesky_tpu.tuning import get_params
-        return get_params("potrf_f32")["leaf_nb"]
-
-    def mm(self, A, B, *, ta="N", tb="N", alpha=1.0, beta=0.0, C=None):
-        A = A.T if ta in ("T", "C") else A
-        B = B.T if tb in ("T", "C") else B
-        if C is None or beta == 0.0:
-            return _pg.matmul_f32(A, B, alpha=float(alpha), beta=0.0)
-        return _pg.matmul_f32(A, B, C, alpha=float(alpha), beta=float(beta))
-
-    def syrk_ln(self, alpha, A, beta, C):
-        return _ps.syrk_f32(A, C, alpha=float(alpha), beta=float(beta))
-
-    def potf2(self, A):
-        # whole-block factorization in ONE kernel: all-in-VMEM to 1024
-        # (ops/pallas/mega.py, the spotfimm2 analog), HBM-resident with
-        # streamed panels to the tuned crossover (≤4096) — one dispatch
-        # either way
-        n = A.shape[0]
-        if _mega_ok(n):
-            if n <= _pm.MAX_N:
-                return _pm.potrf_vmem_f32(A)
-            return _pm.potrf_hbm_f32(A)
-        return _pl.potf2_f32(A)
-
-    def trti2(self, A, *, unit=False):
-        n = A.shape[0]
-        if _mega_ok(n, "trtri"):
-            kern = _pm.trtri_vmem_f32 if n <= _pm.MAX_N else _pm.trtri_hbm_f32
-            if unit:
-                W, info = kern(jnp.tril(A, -1) + jnp.eye(n, dtype=A.dtype))
-                return jnp.tril(W, -1) + jnp.diag(jnp.diag(A)), info
-            return kern(A)
-        return _pl.trti2_f32(A, unit=unit)
-
-    def lauu2(self, A):
-        return _pl.lauu2_f32(A)
-
+        # strict upper of the result is zero: only the lower is read
+        return lapack_ref.lauu2(Uplo.LOWER, jnp.tril(A))
 
 class _OzakiTiles(_XlaTiles):
-    """f64 tiles with matmuls on the int8 MXU via the Ozaki scheme
-    (ops/ozaki.py) — the fast path for the d precision on TPU, where
-    XLA's software f64 matmul runs at single-digit GF/s.
+    """f64 tiles whose matmuls are exact int8-slice products (the Ozaki
+    scheme, ops/ozaki.py) — the explicit ``backend='ozaki'``.
 
-    Leaves avoid O(nb³) emulated-f64 sweeps by refinement: the diagonal
-    block is factored/inverted by the fast f32 Pallas kernels and promoted
-    with ONE correction step built from Ozaki matmuls, squaring the f32
-    error (~2^-24 → ~2^-48):
+    Leaves are refined from f32: the diagonal block is factored/inverted
+    by the f32 leaf and promoted with ONE correction step built from
+    Ozaki matmuls, squaring the f32 error (~2^-24 → ~2^-48):
       potf2:  L = Lₕ + Lₕ·Φ(Lₕ⁻¹ R Lₕ⁻ᵀ),  R = A − LₕLₕᵀ,
               Φ = strict-lower + ½·diag  (the standard Cholesky
               differential/refinement identity)
       trti2:  one Newton step  W₁ = W₀(2I − L·W₀)
-    Only O(nb²) elementwise work remains in emulated f64. slices=6 gives
-    ~2^-42 products, far inside the ≤1e-6 backward-error target
-    (BASELINE.md); non-PD/singularity detection happens at f32 precision.
+    slices=6 gives ~2^-42 products, far inside the ≤1e-6 backward-error
+    target (BASELINE.md). The recursions (trsm_*, trtri_lower, trmm_lln,
+    syrk_ln) peel the factor ONCE and index that shared int8
+    representation from every block update.
     """
     default_nb = 128
     slices = 6
 
-    def __init__(self, slices: int = 6, hoist: bool = True):
+    def __init__(self, slices: int = 6):
         super().__init__(jnp.float64)
         self.slices = slices
-        # use the hoisted-peel recursions (trsm_*/trtri_lower and the
-        # single-peel syrk_ln)? Resolved per driver call from the tuned
-        # size threshold (_ozaki_hoist) — measured a loss at mid sizes.
-        self.hoist = hoist
 
     def mm(self, A, B, *, ta="N", tb="N", alpha=1.0, beta=0.0, C=None):
         from cholesky_tpu.ops.ozaki import matmul_f64
@@ -251,11 +178,8 @@ class _OzakiTiles(_XlaTiles):
 
     def potf2(self, A):
         from cholesky_tpu.ops.ozaki import matmul_f64
-        n = A.shape[0]
         A32 = A.astype(jnp.float32)
-        # mega-aware f32 factor (one kernel dispatch up to the HBM cap)
-        Lh32, info = _PallasTiles().potf2(A32) if _mega_ok(n) \
-            else _pl.potf2_f32(A32)
+        Lh32, info = _XlaTiles(jnp.float32).potf2(A32)
         # past a frozen failure the leaf leaves raw (<=0, possibly ~0)
         # input values on the diagonal; sanitize before the refinement
         # solves so 1/0 cannot poison the output (break semantics: the
@@ -270,42 +194,24 @@ class _OzakiTiles(_XlaTiles):
         R = Afull - matmul_f64(Lh, Lh.T, slices=self.slices)
         # G = Lₕ⁻¹ R Lₕ⁻ᵀ in f32 (R is already O(2^-24·‖A‖); first order)
         R32 = R.astype(jnp.float32)
-        if _potf2_inverse_leaf():
-            # inverse-trick refinement: G = W·R·Wᵀ with W = Lₕ⁻¹ from the
-            # Newton trtri kernel — two MXU matmuls instead of two XLA
-            # substitution solves. W's ~2⁻²⁴ relative error perturbs G
-            # (itself O(2⁻²⁴)·‖A‖) only at second order — the same
-            # argument as the trsm-leaf inverse trick (SURVEY.md §2.4,
-            # reference lapack/spotrf.cu diagonal-inverse hybrid).
-            W32, _ = _PallasTiles().trti2(Lh32) if _mega_ok(n, "trtri") \
-                else _pl.trti2_f32(Lh32)
-            W32 = jnp.tril(W32)
-            G32 = jnp.matmul(W32, jnp.matmul(
-                R32, W32.T, precision=config.matmul_precision),
-                precision=config.matmul_precision)
-        else:
-            G32 = lax.linalg.triangular_solve(Lh32, R32, left_side=True,
-                                              lower=True)
-            G32 = lax.linalg.triangular_solve(Lh32, G32.T, left_side=True,
-                                              lower=True).T
+        G32 = lax.linalg.triangular_solve(Lh32, R32, left_side=True,
+                                          lower=True)
+        G32 = lax.linalg.triangular_solve(Lh32, G32.T, left_side=True,
+                                          lower=True).T
         Phi = jnp.tril(G32, -1) + 0.5 * jnp.diag(jnp.diag(G32))
         E = jnp.matmul(Lh32, Phi, precision=config.matmul_precision)
         refined = jnp.tril(Lh + E.astype(A.dtype))
 
-        # f64 rescue (VERDICT r3 Next #9): the f32 leaf factor decides
-        # failure at f32 precision, so a matrix PD in f64 but borderline
-        # at f32 (leading minors within ~2⁻²⁴ of zero) would wrongly
-        # report info > 0 — a semantic divergence from reference dpotrf
-        # (reference lapack/dpotrf.c potf2 pivots in full f64).  When the
-        # fast path flags a failure, re-factor this leaf with the true-f64
-        # reference potf2; lax.cond executes the slow emulated-f64 branch
-        # ONLY on flagged leaves, so the MXU fast path is untouched for PD
-        # inputs.  Final info is therefore always an f64 verdict.  (The
-        # mirror case — f32 accepting a pivot that is ≤0 in exact f64
-        # arithmetic — remains precision-limited, as in any fixed-precision
-        # dpotrf.)
-        from cholesky_tpu.ops import lapack_ref
-
+        # f64 rescue: the f32 leaf decides failure at f32 precision, so a
+        # matrix PD in f64 but borderline at f32 (leading minors within
+        # ~2⁻²⁴ of zero) would wrongly report info > 0 — a semantic
+        # divergence from reference dpotrf (reference lapack/dpotrf.c potf2
+        # pivots in full f64).  When the f32 leaf flags a failure, re-factor
+        # this leaf with the true-f64 reference potf2; lax.cond executes
+        # that branch ONLY on flagged leaves.  Final info is therefore
+        # always an f64 verdict.  (The mirror case — f32 accepting a pivot
+        # that is ≤0 in exact f64 arithmetic — remains precision-limited,
+        # as in any fixed-precision dpotrf.)
         def _rescue(_):
             L64, info64 = lapack_ref.potf2("L", A)
             return jnp.tril(L64), info64
@@ -317,8 +223,7 @@ class _OzakiTiles(_XlaTiles):
         from cholesky_tpu.ops.ozaki import matmul_f64
         n = A.shape[0]
         A32 = A.astype(jnp.float32)
-        W32, info = _PallasTiles().trti2(A32, unit=unit) \
-            if _mega_ok(n, "trtri") else _pl.trti2_f32(A32, unit=unit)
+        W32, info = _XlaTiles(jnp.float32).trti2(A32, unit=unit)
         if unit:
             W32 = jnp.tril(W32, -1) + jnp.eye(n, dtype=jnp.float32)
         W0 = W32.astype(A.dtype)
@@ -343,11 +248,9 @@ class _OzakiTiles(_XlaTiles):
         """C = α·A·Aᵀ (+ β·C) with ONE peel serving both sides: the
         B-side representation of A·Aᵀ (= split_rows((Aᵀ)ᵀ)) is exactly
         the A-side one, so the generic ``mm`` path's second peel is pure
-        waste. Halves the HBM-bound peel traffic of every trailing
-        update in the d potrf/lauum recursions (VERDICT r4 Next #2;
-        reference dsyrk.cu's single-operand tiling, SURVEY.md §2.2)."""
-        if not self.hoist:      # measured-faster per-call-peel variant
-            return super().syrk_ln(alpha, A, beta, C)
+        waste. Halves the peel traffic of every trailing update in the d
+        potrf/lauum recursions (reference dsyrk.cu's single-operand
+        tiling, SURVEY.md §2.2)."""
         from cholesky_tpu.ops.ozaki import matmul_presplit, split_rows
         As, asc = split_rows(A, self.slices)
         out = matmul_presplit(As, asc, As, asc, out_dtype=self.dtype)
@@ -359,8 +262,8 @@ class _OzakiTiles(_XlaTiles):
 
     def trsm_rlt(self, L, B, nb):
         """X·Lᵀ = B (the potrf panel solve) with L's peel hoisted across
-        all recursion levels (the trmm_lln pattern applied to the solve,
-        VERDICT r4 Next #2): the factor-side operand of every
+        all recursion levels (the trmm_lln pattern applied to the solve):
+        the factor-side operand of every
         off-diagonal update indexes ONE shared int8 representation
         instead of re-peeling per call. Row scales come from the full
         tril'd rows — restriction of a peel to a sub-block stays exact
@@ -435,8 +338,8 @@ class _OzakiTiles(_XlaTiles):
     def trtri_lower(self, L, nb, unit):
         """Blocked lower triangular inverse with the factor-side peel of
         every column update hoisted: M' = −W₂·M·W₁ reads M = L[2,1]
-        through one shared peel of Lᵀ (VERDICT r4 Next #2; reference
-        strtri.c:369-472 column-update scheme)."""
+        through one shared peel of Lᵀ (reference strtri.c:369-472
+        column-update scheme)."""
         from cholesky_tpu.ops.ozaki import matmul_presplit, split_rows
         Lt = jnp.tril(L)
         LTs, ltsc = split_rows(Lt.T, self.slices)
@@ -466,20 +369,17 @@ class _OzakiTiles(_XlaTiles):
     def trmm_lln(self, L, B, nb):
         """Live-block L·B (L exactly lower-triangular) with the int8 slice
         peel HOISTED: both operands are peeled ONCE and every block matmul
-        indexes the shared representation — the peel is HBM-bound and
-        dominated the per-block-mm formulation (measured 2026-08-17). The
-        f64 answer to the reference's triangle-aware dtrmm
-        (blas/dtrmm.cu:1-1744): only live blocks hit the MXU."""
+        indexes the shared representation instead of re-peeling per
+        block. The f64 answer to the reference's triangle-aware dtrmm
+        (blas/dtrmm.cu:1-1744): only live blocks are multiplied."""
         from cholesky_tpu.ops.ozaki import matmul_presplit, split_rows
         Ls, lsc = split_rows(L, self.slices)             # (S, n, n), (n,)
         Bs, bsc = split_rows(B.T, self.slices)           # (S, p, n), (p,)
 
         def rec(i, n):
             # absorb ragged tails up to 1.5*nb into one leaf: splitting
-            # 1.5*nb into (nb, nb/2) costs an extra presplit call (whose
-            # HBM-bound epilogue outweighs the dead-half MXU saving) and a
-            # sub-MXU-efficient nb/2 block — measured 0.77x vs the stale
-            # full matmul at n=1280 before this rule (r4 d-trmm sweep)
+            # 1.5*nb into (nb, nb/2) costs an extra presplit call and a
+            # half-width block for a small dead-half saving
             if n <= nb + nb // 2:
                 return matmul_presplit(Ls[:, i:i + n, i:i + n],
                                        lsc[i:i + n], Bs[:, :, i:i + n], bsc)
@@ -498,56 +398,39 @@ def _route_complex(A, backend: str) -> bool:
     """Should this operand go through the real-embedding complex path
     (ops/complex_embed.py)?
 
-    - (re, im) pair operands always do: the pair form exists because c128
-      cannot even be materialized on TPU (the only other complex entry
-      point would be a dtype that does not compile).
-    - complex arrays do under backend='embed' anywhere, and under 'auto'
-      on TPU — where native-XLA c64 results cannot be transferred and c128
-      is rejected at compile (CLAUDE.md dtype rules). Off-TPU 'auto' keeps
-      native XLA complex (measured faster at library sizes).
+    - (re, im) pair operands always do (the pair form has no native
+      complex array to hand to XLA);
+    - complex arrays do only under backend='embed'; 'auto' keeps native
+      XLA complex (c64/c128 matmuls and solvers run natively on the GPU).
     The reference treats c/z as first-class in every routine
-    (reference include/lapack.h:16-158); this routing is what makes that
-    true through the public API on TPU.
+    (reference include/lapack.h:16-158).
     """
     if isinstance(A, tuple):
         return True
-    if not is_complex(A.dtype):
-        return False
-    if backend == "embed":
-        return True
-    return backend == "auto" and config.on_tpu()
-
-
+    return is_complex(A.dtype) and backend == "embed"
 
 
 def _embed_backend(backend: str) -> str:
     """Inner (real-plane) backend for the embedding tier: 'embed' selects
     the embedding itself, so the real ops run on 'auto'; any other
-    explicit backend ('ref'/'xla'/'pallas'/'ozaki') is honored."""
+    explicit backend ('ref'/'xla'/'ozaki') is honored."""
     return "auto" if backend in ("auto", "embed") else backend
 
-def _tiles_for(dtype, backend: str, n: Optional[int] = None,
-               op: str = "potrf"):
+
+def _tiles_for(dtype, backend: str):
+    """Tile backend of a blocked driver: 'ozaki' → int8-slice f64 tiles;
+    'auto' and 'xla' → XLA tiles for every dtype. Unknown backends raise
+    through xerbla; nothing is rerouted."""
     dtype = jnp.dtype(dtype)
+    backend = _resolve(backend)
     if backend == "embed":
         check(False, "blocked", 0,
               "backend='embed' requires complex operands "
               "(arrays or (re, im) pairs)")
-    if backend == "pallas":
-        check(dtype == jnp.dtype(jnp.float32), "blocked", 0,
-              f"pallas backend supports float32 only, got {dtype}")
-        return _PallasTiles()
     if backend == "ozaki":
         check(dtype == jnp.dtype(jnp.float64), "blocked", 0,
               f"ozaki backend supports float64 only, got {dtype}")
-        return _OzakiTiles(hoist=_ozaki_hoist(n, op))
-    if backend == "xla":
-        return _XlaTiles(dtype)
-    # auto
-    if dtype == jnp.dtype(jnp.float32):
-        return _PallasTiles()
-    if dtype == jnp.dtype(jnp.float64) and config.on_tpu():
-        return _OzakiTiles(hoist=_ozaki_hoist(n, op))
+        return _OzakiTiles()
     return _XlaTiles(dtype)
 
 
@@ -563,7 +446,7 @@ def _trsm_rlt(L, B, t, nb):
     """Solve X·Lᴴ = B (right, lower, conj-transposed, non-unit) — the potrf
     panel solve, via the diagonal-inverse trick at the leaves.
     ("C" degrades to plain transpose for real dtypes.)"""
-    if hasattr(t, "trsm_rlt") and t.hoist:   # Ozaki hoisted peel
+    if hasattr(t, "trsm_rlt"):   # Ozaki: one shared peel of L
         return t.trsm_rlt(L, B, nb)
     n = L.shape[0]
     if n <= nb:
@@ -579,7 +462,7 @@ def _trsm_rlt(L, B, t, nb):
 
 def _trsm_lln(L, B, t, nb, unit):
     """Solve L·X = B (left, lower, no-trans)."""
-    if hasattr(t, "trsm_lln") and t.hoist:   # Ozaki hoisted peel
+    if hasattr(t, "trsm_lln"):   # Ozaki: one shared peel of L
         return t.trsm_lln(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
@@ -597,7 +480,7 @@ def _trsm_lln(L, B, t, nb, unit):
 
 def _trsm_llt(L, B, t, nb, unit):
     """Solve Lᵀ·X = B (left, lower, transposed)."""
-    if hasattr(t, "trsm_llt") and t.hoist:   # Ozaki hoisted peel
+    if hasattr(t, "trsm_llt"):   # Ozaki: one shared peel of L
         return t.trsm_llt(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
@@ -618,23 +501,15 @@ def _force_unit_diag(T):
     return T - jnp.diag(jnp.diag(T)) + jnp.eye(n, dtype=T.dtype)
 
 
-def _potrf_lower(A, t, nb, allow_mega=False):
+def _potrf_lower(A, t, nb):
     n = A.shape[0]
     if n <= nb:
         return t.potf2(A)
-    # intermediate-diagonal mono-kernel route (r4): past the top-level
-    # crossover, the recursion's diagonal sub-factors re-enter the mega
-    # kernels as soon as they fit — e.g. n=16384 runs as two 8192 mono
-    # dispatches + one trsm + one syrk instead of recursing to 256-leaves.
-    # Off for explicit block_size (autotune forces pure recursion that way
-    # to measure the crossover, tools/autotune.py tune_mega_crossover).
-    if allow_mega and isinstance(t, _PallasTiles) and _mega_ok(n):
-        return t.potf2(A)
     n1 = _split(n, nb)
-    L11, i1 = _potrf_lower(A[:n1, :n1], t, nb, allow_mega)
+    L11, i1 = _potrf_lower(A[:n1, :n1], t, nb)
     L21 = _trsm_rlt(L11, A[n1:, :n1], t, nb)
     A22 = t.syrk_ln(-1.0, L21, 1.0, A[n1:, n1:])
-    L22, i2 = _potrf_lower(A22, t, nb, allow_mega)
+    L22, i2 = _potrf_lower(A22, t, nb)
     top = jnp.concatenate([L11, jnp.zeros((n1, n - n1), A.dtype)], axis=1)
     bot = jnp.concatenate([L21, L22], axis=1)
     out = jnp.concatenate([top, bot], axis=0)
@@ -643,19 +518,15 @@ def _potrf_lower(A, t, nb, allow_mega=False):
     return out, info
 
 
-
-def _trtri_lower(L, t, nb, unit, allow_mega=False):
-    if hasattr(t, "trtri_lower") and t.hoist:   # Ozaki hoisted peel
+def _trtri_lower(L, t, nb, unit):
+    if hasattr(t, "trtri_lower"):   # Ozaki: one shared peel of L
         return t.trtri_lower(L, nb, unit)
     n = L.shape[0]
     if n <= nb:
         return t.trti2(L, unit=unit)
-    # intermediate-diagonal mono-kernel route (see _potrf_lower)
-    if allow_mega and isinstance(t, _PallasTiles) and _mega_ok(n, "trtri"):
-        return t.trti2(L, unit=unit)
     n1 = _split(n, nb)
-    W1, i1 = _trtri_lower(L[:n1, :n1], t, nb, unit, allow_mega)
-    W2, i2 = _trtri_lower(L[n1:, n1:], t, nb, unit, allow_mega)
+    W1, i1 = _trtri_lower(L[:n1, :n1], t, nb, unit)
+    W2, i2 = _trtri_lower(L[n1:, n1:], t, nb, unit)
     W1e = _force_unit_diag(W1) if unit else W1
     W2e = _force_unit_diag(W2) if unit else W2
     # M' = -W₂·M·W₁   (reference strtri.c column-update scheme, collapsed)
@@ -669,23 +540,18 @@ def _trtri_lower(L, t, nb, unit, allow_mega=False):
     return out, info
 
 
-def _lauum_lower(L, t, nb, allow_mega=False):
+def _lauum_lower(L, t, nb):
     n = L.shape[0]
     if n <= nb:
         return t.lauu2(L)
-    # whole-diagonal mono-kernel route (see _potrf_lower); lauum's mono
-    # kernel is HBM-only, so require a 128-multiple explicitly
-    if (allow_mega and isinstance(t, _PallasTiles)
-            and n % _pm.NB == 0 and _mega_ok(n, "lauum")):
-        return _pm.lauum_hbm_f32(L)
     n1 = _split(n, nb)
     M, L2 = L[n1:, :n1], L[n1:, n1:]
-    B11 = _lauum_lower(L[:n1, :n1], t, nb, allow_mega)
+    B11 = _lauum_lower(L[:n1, :n1], t, nb)
     conjM = M.conj() if is_complex(L.dtype) else M
     B11 = t.syrk_ln(1.0, conjM.T, 1.0, B11)           # B11 += MᴴM
     L2t = jnp.tril(L2)
     B21 = t.mm(L2t, M, ta="C" if is_complex(L.dtype) else "T")  # L₂ᴴ·M
-    B22 = _lauum_lower(L2, t, nb, allow_mega)
+    B22 = _lauum_lower(L2, t, nb)
     top = jnp.concatenate([B11, jnp.zeros((n1, n - n1), L.dtype)], axis=1)
     bot = jnp.concatenate([B21, B22], axis=1)
     return jnp.concatenate([top, bot], axis=0)
@@ -732,18 +598,12 @@ def potrf(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     """Blocked Cholesky (reference cuSpotrf, lapack/spotrf.c:261-398).
     Returns (A_factored, info).
 
-    Panel solves use recursive substitution (minimal FLOPs). A round-1
-    invert-as-you-go variant (the reference's diagonal-inverse trick,
-    hybridSpotrf spotrf.c:252-256, carried up the whole recursion) was
-    measured a wash at n=2048/4096 when both paths sat on the per-op
-    latency floor, and the mega kernels now own the latency-bound regime
-    it targeted — so the knob was removed (VERDICT r2 Next #9); the
-    trick itself lives on at the leaves (_trsm_rlt), inside the mega
-    kernels (Newton tile inverses) and in the distributed tier.
+    Panel solves use recursive substitution (minimal FLOPs); the
+    reference's diagonal-inverse trick (hybridSpotrf spotrf.c:252-256)
+    lives at the leaves (_trsm_rlt) and in the distributed tier.
 
-    Complex operands (arrays or (re, im) pairs) route through the real
-    embedding onto the fast real tiles when _route_complex says so —
-    c64 rides the f32 Pallas path, c128 the f64 Ozaki path."""
+    Complex operands route through the real embedding when
+    _route_complex says so (pairs, or backend='embed')."""
     if _route_complex(A, backend):
         from cholesky_tpu.ops import complex_embed
         return complex_embed.potrf_split(uplo, A, backend=_embed_backend(backend),
@@ -752,50 +612,38 @@ def potrf(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     n = lapack_ref._square(A, "potrf")
     if backend == "ref":
         return lapack_ref.potrf(uplo, A)
-    t = _tiles_for(A.dtype, backend, n)
+    t = _tiles_for(A.dtype, backend)
     nb = block_size or t.default_nb
     if n == 0:
         return A, jnp.int32(0)
-    # whole-matrix fast path: one mega-kernel dispatch beats the blocked
-    # recursion wherever the kernels reach (measured r3: 2.9 TF/s vs
-    # 1.4 TF/s at n=2048, 1.0 vs 0.3 at 1280) — the public-API analog of
-    # the reference calling spotf2-on-GPU for small problems
-    if (block_size is None and isinstance(t, _PallasTiles) and _mega_ok(n)):
-        F, info = t.potf2(_to_lower(A, uplo))
-        return _merge_triangle(_from_lower(F, uplo), A, uplo), info
     W = _to_lower(A, uplo)
     Wp, _ = _pad_identity(W, nb)
-    F, info = _potrf_lower(Wp, t, nb, allow_mega=block_size is None)
+    F, info = _potrf_lower(Wp, t, nb)
     F = F[:n, :n]
     return _merge_triangle(_from_lower(F, uplo), A, uplo), info
 
 
 def potf2(uplo, A, backend: str = "auto", **kw):
-    """Unblocked Cholesky of one diagonal block. f32 blocks of kernel-
-    compatible size route through the in-VMEM Pallas leaf under
-    'pallas'/'auto' (reference device-side spotf2, spotrf.cu:26-107);
-    everything else uses the oracle sweep. Complex operands (arrays on
-    TPU, (re, im) pairs anywhere) go through the embedding driver."""
+    """Unblocked Cholesky of one diagonal block: the XLA-tile leaf under
+    'auto'/'xla' (the on-device diagonal factor of the reference's
+    spotf2, spotrf.cu:26-107), the oracle sweep otherwise. Complex
+    operands routed by _route_complex go through the embedding driver."""
     if _route_complex(A, backend):
         from cholesky_tpu.ops import complex_embed
         return complex_embed.potrf_split(uplo, A,
                                          backend=_embed_backend(backend))
     u = norm_uplo(uplo)
     n = lapack_ref._square(A, "potf2")
-    if (backend in ("auto", "pallas") and A.dtype == jnp.float32
-            and 0 < n and (n <= _pl.PANEL or n % _pl.PANEL == 0)):
-        W = _to_lower(A, u)
-        L, info = _PallasTiles().potf2(W)   # mega kernel when it fits
+    if _resolve(backend) in ("auto", "xla") and n > 0:
+        L, info = _XlaTiles(A.dtype).potf2(_to_lower(A, u))
         return _merge_triangle(_from_lower(L, u), A, u), info
     return lapack_ref.potf2(uplo, A)
 
 
-
 def trti2(uplo, diag, A, backend: str = "auto", **kw):
     """Unblocked triangular inverse of one diagonal block. Complex
-    operands (arrays on TPU, (re, im) pairs anywhere) route through the
-    embedding driver — without this, the typed c/z trti2 entry points
-    would crash on the only TPU-viable operand form."""
+    operands routed by _route_complex ((re, im) pairs, backend='embed')
+    go through the embedding driver."""
     if _route_complex(A, backend):
         from cholesky_tpu.ops import complex_embed
         return complex_embed.trtri_split(uplo, diag, A,
@@ -825,21 +673,14 @@ def trtri(uplo, diag, A, backend: str = "auto",
     n = lapack_ref._square(A, "trtri")
     if backend == "ref":
         return lapack_ref.trtri(uplo, diag, A)
-    t = _tiles_for(A.dtype, backend, n, op="trtri")
+    t = _tiles_for(A.dtype, backend)
     nb = block_size or t.default_nb
     if n == 0:
         return A, jnp.int32(0)
     unit = diag == Diag.UNIT
-    W = _to_lower(A, uplo)
-    # whole-matrix fast path (see potrf): one kernel dispatch
-    if (block_size is None and isinstance(t, _PallasTiles)
-            and _mega_ok(n, "trtri")):
-        R, info = t.trti2(W, unit=unit)
-    else:
-        Wp, _ = _pad_identity(W, nb)
-        R, info = _trtri_lower(Wp, t, nb, unit,
-                               allow_mega=block_size is None)
-        R = R[:n, :n]
+    Wp, _ = _pad_identity(_to_lower(A, uplo), nb)
+    R, info = _trtri_lower(Wp, t, nb, unit)
+    R = R[:n, :n]
     if unit:
         # LAPACK contract: unit-diagonal entries pass through untouched
         R = jnp.tril(R, -1) + jnp.diag(jnp.diag(_to_lower(A, uplo)))
@@ -862,14 +703,12 @@ def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     n = lapack_ref._square(A, "lauum")
     if backend == "ref":
         return lapack_ref.lauum(uplo, A)
-    t = _tiles_for(A.dtype, backend, n, op="lauum")
+    t = _tiles_for(A.dtype, backend)
     nb = block_size or t.default_nb
     if n == 0:
         return A
-    W = _to_lower(A, uplo)
-    Wp, _ = _pad_identity(W, nb)
-    R = _lauum_lower(Wp, t, nb,
-                     allow_mega=block_size is None)[:n, :n]
+    Wp, _ = _pad_identity(_to_lower(A, uplo), nb)
+    R = _lauum_lower(Wp, t, nb)[:n, :n]
     return _merge_triangle(_from_lower(R, uplo), A, uplo)
 
 
@@ -918,26 +757,23 @@ def _check_no_stray_pairs(name, *operands):
               "alpha/beta so the embedding tier can trace them")
 
 
-def _fast_tiles_or_none(dtype, backend: str,
-                        n: Optional[int] = None,
-                        op: str = "potrf"):
-    """Fast tile backend for the BLAS wrappers, or None to use blas_ref:
-    f32 → Pallas; f64 → Ozaki (explicit, or 'auto' on TPU). Complex is
-    routed to the embedding BEFORE this is consulted (_route_complex);
-    complex reaching here means native XLA was chosen (off-TPU 'auto' or
-    explicit 'xla'/'ref' — measured faster than the embedding on CPU).
-    """
+def _fast_tiles_or_none(dtype, backend: str):
+    """Tile backend for the BLAS wrappers, or None to use blas_ref:
+    real dtypes → XLA tiles under 'auto'/'xla'; f64 → Ozaki tiles under
+    'ozaki'. Complex is routed to the embedding BEFORE this is consulted
+    (_route_complex); complex reaching here runs natively through
+    blas_ref. Unknown backends raise through xerbla."""
     dtype = jnp.dtype(dtype)
+    backend = _resolve(backend)
     if backend == "embed":
         check(False, "blocked", 0,
               "backend='embed' requires complex operands "
               "(arrays or (re, im) pairs)")
-    if backend in ("auto", "pallas") and dtype == jnp.dtype(jnp.float32):
-        return _PallasTiles()
-    if dtype == jnp.dtype(jnp.float64) and (
-            backend == "ozaki" or (backend == "auto" and config.on_tpu())):
-        return _OzakiTiles(hoist=_ozaki_hoist(n, op))
-    if backend == "xla" and not is_complex(dtype):
+    if is_complex(dtype):
+        return None
+    if backend == "ozaki":
+        return _OzakiTiles() if dtype == jnp.dtype(jnp.float64) else None
+    if backend in ("auto", "xla"):
         return _XlaTiles(dtype)
     return None
 
@@ -972,20 +808,12 @@ def syrk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
           "csyrk/zsyrk (include/blas.h:57-66); use herk/cherk/zherk")
     uplo = norm_uplo(uplo)
     trans = norm_trans(trans)
-    if (backend in ("auto", "pallas") and A.dtype == jnp.float32
-            and _static_scalar(alpha) and _static_scalar(beta)):
+    t = _fast_tiles_or_none(A.dtype, backend) \
+        if _static_scalar(alpha) and _static_scalar(beta) else None
+    if t is not None:
         X = A if trans == Trans.NO_TRANS else A.T
-        if uplo == Uplo.LOWER:
-            return _ps.syrk_f32(X, C, alpha=float(alpha), beta=float(beta))
-        # upper triangle = transpose of the lower-triangle computation on Cᵀ
-        return _ps.syrk_f32(X, C.T, alpha=float(alpha), beta=float(beta)).T
-    t = _fast_tiles_or_none(getattr(A, "dtype", None), backend,
-                            n=C.shape[0], op="syrk") \
-        if not isinstance(A, tuple) and _static_scalar(alpha) \
-        and _static_scalar(beta) else None
-    if t is not None:      # f64 on TPU: Ozaki tiles instead of software f64
-        X = A if trans == Trans.NO_TRANS else A.T
-        # syrk_ln: one peel serves both sides on the Ozaki tiles
+        # full product, then the uplo triangle over the caller's C
+        # (syrk_ln: one peel serves both sides on the Ozaki tiles)
         full = t.syrk_ln(alpha, X, beta, C)
         return _merge_triangle(full, C, uplo)
     return blas_ref.syrk(uplo, trans, alpha, A, beta, C)
@@ -998,7 +826,7 @@ def herk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
         return complex_embed.herk_split(uplo, trans, alpha, A, beta, C,
                                         backend=_embed_backend(backend))
     _check_no_stray_pairs("herk", A, C)
-    if not isinstance(A, tuple) and A.dtype == jnp.float32:
+    if not is_complex(A.dtype):
         tr = "N" if norm_trans(trans) == Trans.NO_TRANS else "T"
         return syrk(uplo, tr, alpha, A, beta, C, backend=backend)
     return blas_ref.herk(uplo, trans, alpha, A, beta, C)
@@ -1013,27 +841,15 @@ def trmm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
     side = norm_side(side)
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
-    if (backend in ("auto", "pallas") and A.dtype == jnp.float32
-            and _static_scalar(alpha)):
-        # all 16 side/uplo/trans/diag combos canonicalize onto the ONE
-        # live-tile (left, lower, no-trans) kernel via O(n²) XLA
-        # transposes/reversals — the TPU answer to the reference's 16
-        # hand-written per-combination kernels (blas/strmm.cu,
-        # ztrmm.cu:73-1005): half the MXU flops and half the A-traffic
-        # of the round-1 masked-full-GEMM tier.
-        M = blas_ref._tri(A, uplo, diag)
-        if side == Side.RIGHT:           # B·op(M) = (op(M)ᵀ·Bᵀ)ᵀ
-            return _trmm_left_f32(M, uplo, _flip_trans(transa),
-                                  B.T, alpha).T
-        return _trmm_left_f32(M, uplo, transa, B, alpha)
-    t = _fast_tiles_or_none(getattr(A, "dtype", None), backend) \
-        if not isinstance(A, tuple) and _static_scalar(alpha) else None
+    t = _fast_tiles_or_none(A.dtype, backend) \
+        if _static_scalar(alpha) else None
     if t is not None:
-        # structure-exploiting recursion over the fast tiles (r3,
-        # VERDICT #4): only live blocks of the triangle are multiplied —
-        # ~half the (Ozaki int8 / XLA) matmul work of the former
-        # full-masked-matmul path. The TPU answer to the reference's
-        # per-dtype triangle kernels (blas/dtrmm.cu, ztrmm.cu:73-1005).
+        # structure-exploiting recursion over the tiles: only live blocks
+        # of the triangle are multiplied — about half the matmul work of
+        # a masked full GEMM. All side/uplo/trans combos canonicalize onto
+        # the ONE (left, lower, no-trans) recursion via O(n²) transposes
+        # and reversals (the reference writes one kernel per combo,
+        # blas/strmm.cu, dtrmm.cu, ztrmm.cu:73-1005).
         M = blas_ref._tri(A, uplo, diag)
         if side == Side.RIGHT:     # B·op(M) = (op(M)ᵀ·Bᵀ)ᵀ, real dtypes
             return _trmm_left_tiles(t, M, uplo, _flip_trans(transa),
@@ -1047,19 +863,17 @@ def _flip_trans(transa):
             else Trans.NO_TRANS)        # T and C coincide for real dtypes
 
 
-# leaf width for the live-block trmm recursion over generic tiles: large
-# enough to amortize the Ozaki slice-split per call, small enough that the
-# dead half of the leaf (~nb/2n of the total) stays minor
+# leaf width for the live-block trmm recursion: large enough that each
+# leaf matmul (and the Ozaki slice-split per call) is efficient, small
+# enough that the dead half of the leaf (~nb/2n of the total) stays minor
 TRMM_TILES_NB = 512
 
 
 def _trmm_lln_tiles(L, B, t, nb):
     """L·B with L an exactly-triangular lower matrix, via live-block
-    recursion over the ``t`` tile backend — the generic-dtype analog of
-    the f32 live-tile Pallas grid (ops/pallas/trmm.py): the dead upper
-    blocks are never multiplied. Backends with a ``trmm_lln`` method
-    (Ozaki: hoists the HBM-bound slice peel out of the recursion) take
-    over the whole triangle."""
+    recursion over the ``t`` tile backend: the dead upper blocks are never
+    multiplied. Backends with a ``trmm_lln`` method (Ozaki: hoists the
+    slice peel out of the recursion) take over the whole triangle."""
     if hasattr(t, "trmm_lln"):
         return t.trmm_lln(L, B, nb)
     n = L.shape[0]
@@ -1075,8 +889,9 @@ def _trmm_lln_tiles(L, B, t, nb):
 def _trmm_left_tiles(t, M, uplo, transa, B, alpha, nb: int = None):
     """op(M)·B over generic tiles; real dtypes only (complex trmm routes
     through the embedding's own live-block recursion,
-    complex_embed.trmm_split). Upper forms reduce to lower by the same
-    double-reversal identity as :func:`_trmm_left_f32`."""
+    complex_embed.trmm_split). op(M) is lower iff (lower, N) or
+    (upper, T); upper forms reduce to lower by the double-reversal
+    identity U·B = flipud(rev2(U) · flipud(B)) with rev2(U) lower."""
     nb = TRMM_TILES_NB if nb is None else nb    # module attr, patchable
     check(not is_complex(M.dtype), "trmm", 6,
           "complex trmm must route through the embedding tier")
@@ -1088,20 +903,6 @@ def _trmm_left_tiles(t, M, uplo, transa, B, alpha, nb: int = None):
     else:
         out = _trmm_lln_tiles(E[::-1, ::-1], B[::-1, :], t, nb)[::-1, :]
     return out if alpha == 1.0 else alpha * out
-
-
-def _trmm_left_f32(M, uplo, transa, B, alpha):
-    """op(M)·B with M an exactly-triangular f32 matrix, via the live-tile
-    Pallas kernel. op(M) is lower iff (lower, N) or (upper, T); upper
-    forms reduce to lower by the double-reversal identity
-    U·B = flipud(rev2(U) · flipud(B)) with rev2(U) lower triangular."""
-    from cholesky_tpu.ops.pallas import trmm as _pt
-    E = M if norm_trans(transa) == Trans.NO_TRANS else M.T
-    e_lower = (uplo == Uplo.LOWER) == (norm_trans(transa) == Trans.NO_TRANS)
-    if e_lower:
-        return _pt.trmm_lln_f32(E, B, alpha=float(alpha))
-    out = _pt.trmm_lln_f32(E[::-1, ::-1], B[::-1, :], alpha=float(alpha))
-    return out[::-1, :]
 
 
 def trmm2(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
@@ -1123,8 +924,7 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
     diag = norm_diag(diag)
-    t = _fast_tiles_or_none(A.dtype, backend, n=A.shape[0],
-                            op="trsm") \
+    t = _fast_tiles_or_none(A.dtype, backend) \
         if _static_scalar(alpha) else None
     if t is None:
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)

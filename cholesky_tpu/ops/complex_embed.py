@@ -1,9 +1,9 @@
 """Complex routines via the interleaved real embedding.
 
-The TPU compiler rejects complex128 outright and lowers complex64 matmuls
-to multiple real passes; the reference instead *hand-splits* complex into
-real/imag planes in shared memory (reference cgemm.cu:7-15 split-storage +
-cuCfmaf fusion). This module is the structural TPU analog, built on a
+The reference *hand-splits* complex into real/imag planes in shared memory
+(reference cgemm.cu:7-15 split-storage + cuCfmaf fusion). This module is
+the structural analog — selected by ``backend='embed'`` or by passing
+(re, im) pair operands; 'auto' runs complex natively — built on a
 classical identity:
 
 Embed each complex entry a+bi as the 2×2 real block [[a, -b], [b, a]]
@@ -15,15 +15,13 @@ Cholesky factor is real, E(L) is *lower triangular* — so
     chol(E(A)) = E(chol(A))        (exactly, by uniqueness)
 
 and likewise trtri/lauum/potri/trsm commute with E. Complex drivers
-therefore reduce to the library's fast REAL drivers at size 2n:
-complex64 rides the f32 Pallas path, complex128 rides the f64 path —
-making z-routines runnable on a TPU that cannot even hold a c128 array
-(operands travel as (re, im) real pairs).
+therefore reduce to the library's REAL drivers at size 2n: complex64
+rides the f32 tiles, complex128 the f64 tiles, and operands may travel as
+(re, im) real pairs that never form a complex array.
 
 Cost: a real 2n potrf is 8n³/3 real flops vs 4n³/3 for ideal complex —
-a 2× overhead, paid for MXU-native execution (same trade the reference
-makes by splitting: it spends extra shared-memory traffic to keep the
-FMA pipes busy).
+a 2× overhead (the reference's split makes a similar trade: extra
+shared-memory traffic to keep the FMA pipes busy).
 
 logdet: det(E(A)) = |det(A)|² = det(A)² for HPD ⇒ logdet(A) = ½·logdet(E(A)).
 """
@@ -40,12 +38,8 @@ from cholesky_tpu.ops import blocked
 
 
 def _row_interleave(X, Y):
-    """(n,m) × (n,m) → (2n,m) with rows alternating X_i, Y_i.  The only
-    intermediate is (n,2,m) whose trailing dims tile to (8,128) at a 4×
-    padding cost — unlike a trailing dim of 2, which tiles at 64× (a
-    (n,2,m,2) interleave transpose at n=4096 allocates 16 GB of padded
-    HBM and OOMs the chip; that was the real cause of the cpotrf@4096
-    'tpu_compile_helper exit 1' sweep failure)."""
+    """(n,m) × (n,m) → (2n,m) with rows alternating X_i, Y_i, through one
+    (n,2,m) intermediate."""
     n, m = X.shape
     return jnp.stack([X, Y], axis=1).reshape(2 * n, m)
 
@@ -111,7 +105,7 @@ def _merge(re, im, like):
 def potrf_split(uplo, A, backend: str = "auto",
                 block_size: Optional[int] = None):
     """Complex Cholesky via the real embedding. ``A`` is a complex array or
-    an (re, im) pair of real arrays (the only TPU-viable form for c128);
+    an (re, im) pair of real arrays;
     the result matches the input form. Returns (factor, info); info indexes
     the complex pivot (1-based). The opposite strict triangle of the
     caller's matrix passes through (public-driver storage contract)."""
@@ -239,8 +233,8 @@ def _op_planes(re, im, trans):
 def gemm_split(transa, transb, alpha, A, B, beta, C, backend: str = "auto"):
     """Complex GEMM via the embedding: E(α·op(A)·op(B) + β·C) =
     α·E(op A)·E(op B) + β·E(C) — one real GEMM at 2× each dimension on the
-    fast real tiles (c64 → f32 Pallas, c128 → f64 Ozaki). This is the TPU
-    analog of the reference's split-storage complex kernels
+    real tiles (c64 → f32, c128 → f64). This is the analog of the
+    reference's split-storage complex kernels
     (reference blas/cgemm.cu:7-15, zgemm.cu). α, β static scalars —
     complex allowed (reference cgemm takes complex alpha/beta,
     include/blas.h:180-190). Operands are complex arrays or (re, im)
@@ -302,8 +296,8 @@ def _trmm_lln_planes(tr, ti, br, bi, backend, nb=_TRMM_PLANES_NB):
     live-block recursion: diagonal blocks recurse, the off-diagonal dense
     block is ONE embedded real GEMM — the dead upper blocks are never
     multiplied (~half the embedded-matmul work of a full embedding).
-    The complex-level analog of the f32 live-tile grid (ops/pallas/trmm.py)
-    and the reference's triangle-aware ztrmm (blas/ztrmm.cu:73-1005)."""
+    The complex-level analog of blocked._trmm_lln_tiles and the
+    reference's triangle-aware ztrmm (blas/ztrmm.cu:73-1005)."""
     n = tr.shape[0]
     if n <= nb + nb // 2:   # ragged-tail absorption (blocked.trmm_lln)
         EB = embed(br, bi)

@@ -1,4 +1,4 @@
-"""Backend dispatch: route ops to ref / xla-blocked / pallas tiers.
+"""Backend dispatch: route ops to the ref tier or the blocked drivers.
 
 The reference selects implementations by linking one of three tiers
 (include/blas.h:29-34) and by snprintf-ing mangled kernel names at runtime
@@ -13,14 +13,16 @@ import functools
 import jax
 
 from cholesky_tpu.ops import blas_ref, lapack_ref
+from cholesky_tpu.utils.errors import check
 
-_BACKENDS = ("auto", "ref", "xla", "pallas", "ozaki", "embed")
+_BACKENDS = ("auto", "ref", "xla", "ozaki", "embed")
 
 
 def _resolve(backend: str | None) -> str:
+    """Validate a backend name; unknown names raise through xerbla."""
     b = backend or "auto"
-    if b not in _BACKENDS:
-        raise ValueError(f"unknown backend {b!r}; expected one of {_BACKENDS}")
+    check(b in _BACKENDS, "backend", 0,
+          f"unknown backend {b!r}; expected one of {_BACKENDS}")
     return b
 
 
@@ -30,7 +32,7 @@ def _wrap_blas(name):
     @functools.wraps(ref_fn)
     def fn(*args, backend: str | None = None, **kwargs):
         b = _resolve(backend)
-        if b in ("auto", "xla", "pallas", "ozaki", "embed"):
+        if b != "ref":
             from cholesky_tpu.ops import blocked
             impl = getattr(blocked, name, None)
             if impl is not None:
@@ -46,7 +48,7 @@ def _wrap_lapack(name):
     @functools.wraps(ref_fn)
     def fn(*args, backend: str | None = None, **kwargs):
         b = _resolve(backend)
-        if b in ("auto", "xla", "pallas", "ozaki", "embed"):
+        if b != "ref":
             from cholesky_tpu.ops import blocked
             impl = getattr(blocked, name, None)
             if impl is not None:

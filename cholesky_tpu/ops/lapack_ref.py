@@ -1,9 +1,9 @@
 """Reference (oracle) LAPACK tier — pure jnp, jittable, all four precisions.
 
-TPU rebuild of the reference's CPU LAPACK tier (reference lapack/spotrf.c,
+Rebuild of the reference's CPU LAPACK tier (reference lapack/spotrf.c,
 strtri.c, slauum.c, spotri.c, slogdet.c) as a single dtype-generic source.
 
-``info`` semantics under jit: a compiled TPU program cannot early-exit, so
+``info`` semantics under jit: a compiled program cannot early-exit, so
 every routine computes the full (masked) result and *returns* ``info`` as a
 traced int32 — 0 on success, else the 1-based index of the first failing
 pivot, exactly the value the reference stores (reference lapack/spotrf.c:47-51,
@@ -72,7 +72,10 @@ def potf2(uplo, A):
         info = jnp.where(bad & (info == 0), j + 1, info).astype(jnp.int32)
         d = jnp.sqrt(jnp.where(bad, jnp.ones((), rdt), ajj))
         col = lax.dynamic_slice(A, (0, j), (n, 1))[:, 0]
-        v = jnp.matmul(A, rowm.conj(), precision=config.matmul_precision)
+        # dot products over k < j only, as the reference's sdot does: a
+        # non-finite entry in columns ≥ j must not leak in through 0·NaN
+        Aj = jnp.where(maskj[None, :], A, jnp.zeros((), A.dtype))
+        v = jnp.matmul(Aj, rowm.conj(), precision=config.matmul_precision)
         newcol = (col - v) / d.astype(A.dtype)
         out = jnp.where(idx > j, newcol,
                         jnp.where(idx == j, d.astype(A.dtype), col))
@@ -92,7 +95,8 @@ def potf2(uplo, A):
         info = jnp.where(bad & (info == 0), j + 1, info).astype(jnp.int32)
         d = jnp.sqrt(jnp.where(bad, jnp.ones((), rdt), ajj))
         row = lax.dynamic_slice(A, (j, 0), (1, n))[0]
-        v = jnp.matmul(colm.conj(), A, precision=config.matmul_precision)
+        Aj = jnp.where(maskj[:, None], A, jnp.zeros((), A.dtype))
+        v = jnp.matmul(colm.conj(), Aj, precision=config.matmul_precision)
         newrow = (row - v) / d.astype(A.dtype)
         out = jnp.where(idx > j, newrow,
                         jnp.where(idx == j, d.astype(A.dtype), row))

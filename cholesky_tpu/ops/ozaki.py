@@ -1,7 +1,7 @@
-"""Fast f64 matmul on TPU via the Ozaki splitting scheme (int8 MXU).
+"""f64 matmul via the Ozaki splitting scheme (exact int8 products).
 
-The TPU has no f64 MXU path — XLA's software f64 matmul runs at single-
-digit GF/s. This module is the moral successor of the reference's
+Selected by ``backend='ozaki'``; f64 ``'auto'`` uses native FP64. This
+module is the moral successor of the reference's
 sm_13-era trick of storing doubles as hi/lo int pairs in 32-bit shared
 memory (reference dgemm.cu:3-10, ztrmm.cu:4-36, SURVEY.md §2.2): represent
 each f64 operand exactly as a short sum of int8 *slices* and recover the
@@ -23,14 +23,13 @@ Scheme (Ozaki et al.; the int8 tensor-core formulation):
 
 With S=4 (10 int8 matmuls, 4 f64 axpys): elementwise error ≲
 K·2^{-28}·rowscale·colscale — far inside the ≤1e-6 backward-error target
-for the d-precision drivers, at integer-MXU speed instead of software-f64.
+for the d-precision drivers, with every product on the int8 GEMM path.
 S is tunable (S=6 → 21 matmuls, ~2^{-42} for near-f64 work).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -48,10 +47,8 @@ def _split_rows(A, slices: int):
     """Peel rows of an f64 matrix into int8 slices.
     Returns (slices (S, m, k) int8, row scale (m,) f64 power of two).
 
-    All peel arithmetic runs in NATIVE f32 on an (hi, lo) pair — the TPU's
-    emulated-f64 elementwise ops are not faithful enough for the exact
-    round-and-subtract invariant (observed: residuals off by 2^-7 cascading
-    into wrapped int8 slices), while f32 two-sum arithmetic is exact:
+    All peel arithmetic runs in f32 on an (hi, lo) pair, where two-sum
+    arithmetic keeps the round-and-subtract invariant exact:
       - exponents via f32 frexp (f64 frexp needs an unimplemented 64-bit
         bitcast); f32-rounding can only grow the exponent, keeping |r|≤~1/2
       - scales via f32 ldexp (jnp.exp2 lowers as exp(x·ln2) and ROUNDS)
@@ -70,13 +67,6 @@ def _split_rows(A, slices: int):
     xl = (A - xh.astype(A.dtype)).astype(jnp.float32)  # exact residual
     rh = xh * inv                            # power-of-two scaling: exact
     rl = xl * inv
-    from cholesky_tpu import config
-    if config.on_tpu():
-        # fused VMEM peel: the XLA loop below round-trips (rh, rl)
-        # through HBM once per slice and dominated the whole matmul
-        # (ops/pallas/ozaki_split.py)
-        from cholesky_tpu.ops.pallas.ozaki_split import peel_f32pair
-        return peel_f32pair(rh, rl, slices=slices), 2.0 * scale[:, 0]
     outs = []
     for _ in range(slices):
         q = jnp.round(rh * _RADIX)           # native f32 round, |q| ≤ 64+1
@@ -90,7 +80,7 @@ def _split_rows(A, slices: int):
 
 
 def _matmul_int8(a, b):
-    """(m,k) int8 · (k,n) int8 → int32, exact on the MXU."""
+    """(m,k) int8 · (k,n) int8 → int32, exact (an integer GEMM)."""
     return lax.dot_general(a, b, (((1,), (0,)), ((), ())),
                            preferred_element_type=jnp.int32)
 
@@ -98,7 +88,7 @@ def _matmul_int8(a, b):
 def split_rows(A, slices: int):
     """Public pre-split entry: peel ``A`` (f64) into int8 row slices once,
     so callers with block structure (live-block TRMM, blocked drivers) can
-    hoist the HBM-bound peel out of their per-block matmuls and feed
+    hoist the memory-bound peel out of their per-block matmuls and feed
     sub-blocks of the SAME representation to :func:`matmul_presplit` —
     restriction of a peeled representation to any sub-block stays an exact
     peel (the scale is per full row, only loosening the dropped-pair bound
@@ -106,33 +96,11 @@ def split_rows(A, slices: int):
     return _split_rows(A, slices)
 
 
-def use_fused() -> bool:
-    """Should :func:`matmul_presplit` route through the fused group-sum
-    kernel (ops/pallas/ozaki_mm.py)?  Resolved at trace time:
-    ``CHOLESKY_TPU_OZAKI_FUSED=1/0`` overrides; the default is ON for
-    compiled TPU execution — measured driver-level wins
-    (bench_results/ozaki_fused_probe.json: d trmm 1.35-1.61x, d potrf
-    ~1.4x) — and OFF elsewhere (the XLA per-group loop is faster than an
-    interpreted kernel on the CPU mesh)."""
-    v = os.environ.get("CHOLESKY_TPU_OZAKI_FUSED")
-    if v is not None:
-        return v not in ("0", "false", "")
-    from cholesky_tpu import config
-    return config.on_tpu()
-
-
-def matmul_presplit(As, ascale, Bs, bscale, out_dtype=jnp.float64,
-                    fused=None):
+def matmul_presplit(As, ascale, Bs, bscale, out_dtype=jnp.float64):
     """C ≈ A·B from pre-peeled operands: ``As (S,m,k)`` int8 + row scales
     ``(m,)`` from ``split_rows(A)``; ``Bs (S,n,k)`` int8 + column scales
     ``(n,)`` from ``split_rows(B.T)``.  Same arithmetic and error bound as
-    :func:`matmul_f64`; the peel cost is the caller's, paid once.
-
-    ``fused=None`` resolves via :func:`use_fused`: the fused kernel runs
-    the whole group/epilogue pipeline in VMEM and accumulates in an exact
-    f32 pair (~48 mantissa bits) instead of per-group emulated f64 — the
-    pair noise sits at ~2^-48 of the largest k-partial, below the
-    2^{-7S} dropped-pair floor that dominates the Ozaki error."""
+    :func:`matmul_f64`; the peel cost is the caller's, paid once."""
     S, m, k = As.shape
     S2, n, k2 = Bs.shape
     assert S == S2 and k == k2, (As.shape, Bs.shape)
@@ -147,24 +115,16 @@ def matmul_presplit(As, ascale, Bs, bscale, out_dtype=jnp.float64,
             w = min(step, k - c)
             acc = acc + matmul_presplit(As[:, :, c:c + w], ascale,
                                         Bs[:, :, c:c + w], bscale,
-                                        out_dtype=out_dtype, fused=fused)
+                                        out_dtype=out_dtype)
         return acc
-    if fused is None:
-        fused = use_fused()
-    if fused:
-        from cholesky_tpu.ops.pallas import ozaki_mm
-        assert ozaki_mm.SLICE_BITS == SLICE_BITS
-        hi, lo = ozaki_mm.mm_groups_f32pair(As, Bs)
-        acc = hi.astype(out_dtype) + lo.astype(out_dtype)
-        return acc * ascale[:, None] * bscale[None, :]
     acc = jnp.zeros((m, n), out_dtype)
     for g in range(S):                       # weight group: s + t == g
         G = None
         for s in range(g + 1):
             P = _matmul_int8(As[s], Bs[g - s].T)         # exact int32
             G = P if G is None else G + P                # exact int32 sum
-        # int32 → f64 may route through f32 on this backend (exact only to
-        # 2^24); split into 12-bit halves so each converts exactly
+        # split into 12-bit halves so each converts exactly even where
+        # int32 → f64 is lowered through f32 (exact only to 2^24)
         Ghi = G // 4096
         Glo = G - Ghi * 4096
         Gf = Ghi.astype(out_dtype) * 4096.0 + Glo.astype(out_dtype)

@@ -33,9 +33,8 @@ _MATRIX_ARG = {
 
 def _make(letter: str, name: str):
     dtype = jnp.dtype(PRECISIONS[letter])
-    # the (re, im) pair form of a complex operand — the only TPU-viable
-    # entry for z routines (c128 cannot be materialized on device); pairs
-    # carry the matching real dtype planes
+    # the (re, im) pair form of a complex operand (the embedding tier's
+    # entry); pairs carry the matching real dtype planes
     pair_dtype = {"c": jnp.dtype(jnp.float32), "z": jnp.dtype(jnp.float64)
                   }.get(letter)
     generic = getattr(dispatch, name)

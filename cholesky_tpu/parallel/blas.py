@@ -9,8 +9,8 @@ mesh axis and each device computes its stripe in one SPMD program:
 
   gemm_dist   C rows sharded, op(A) rows sharded to match, op(B)
               replicated → pure-local GEMM, zero collectives (the
-              reference streams k-panels instead; HBM-resident operands
-              make that machinery unnecessary, SURVEY.md §2.5)
+              reference streams k-panels instead; device-resident
+              operands make that machinery unnecessary, SURVEY.md §2.5)
   syrk_dist   A rows sharded; ONE all_gather supplies the transposed
               operand; triangle-only stores preserved per stripe
   trmm_dist   triangular operand replicated (it is read-only and
@@ -40,7 +40,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cholesky_tpu import config
 from cholesky_tpu.ops import blas_ref
-from cholesky_tpu.utils import vma
 from cholesky_tpu.types import (
     norm_side, norm_trans, norm_uplo, Side, Trans, Uplo,
 )
@@ -51,13 +50,9 @@ def _round_up(x, m):
 
 
 def _local_mm(a, b):
-    """Per-device matmul on the fast path: f64 routes through the Ozaki
-    int8 tiles on TPU (native f64 is software-emulated there — the dist
-    tier must run the same kernels as the single-chip tier, reference
-    spotrf.c:400-468); everything else is a full-precision XLA matmul."""
-    if a.dtype == jnp.float64 and config.on_tpu():
-        from cholesky_tpu.ops.ozaki import matmul_f64
-        return matmul_f64(a, b, slices=6)
+    """Per-device matmul: a full-precision XLA matmul (cuBLAS), the same
+    GEMM the single-device tier runs (reference bar: the multiGPU tier
+    reuses the GPU kernels, spotrf.c:400-468)."""
     return jnp.matmul(a, b, precision=config.matmul_precision)
 
 
@@ -179,14 +174,12 @@ def trsm_dist(side, uplo, transa, diag, alpha, A, B, mesh: Mesh,
             return blocked.trsm(Side.LEFT, uplo, transa, diag, alpha,
                                 a_full, b_loc).astype(B.dtype)
 
-        # collective-free body; vma checker ON except for interpret-mode
-        # Pallas leaves (utils/vma.checker_on). A rides in as an explicit
-        # replicated input — a closure-captured array can carry a sharding
-        # that conflicts with the Manual mesh context.
+        # collective-free body. A rides in as an explicit replicated
+        # input — a closure-captured array can carry a sharding that
+        # conflicts with the Manual mesh context.
         fn = jax.shard_map(body, mesh=mesh,
                            in_specs=(P(None, None), P(None, axis)),
-                           out_specs=P(None, axis),
-                           check_vma=vma.checker_on())
+                           out_specs=P(None, axis))
         out = fn(A, Bp)
         return out[:, :n] if npd != n else out
     m = B.shape[0]
@@ -200,7 +193,7 @@ def trsm_dist(side, uplo, transa, diag, alpha, A, B, mesh: Mesh,
 
     fn = jax.shard_map(body, mesh=mesh,
                        in_specs=(P(None, None), P(axis, None)),
-                       out_specs=P(axis, None), check_vma=vma.checker_on())
+                       out_specs=P(axis, None))
     return fn(A, Bp)[:m]
 
 
@@ -208,14 +201,11 @@ def trmm_dist(side, uplo, transa, diag, alpha, A, B, mesh: Mesh,
               axis: str = "d"):
     """B := alpha·op(tri(A))·B (left) or alpha·B·op(tri(A)) (right).
 
-    Same decomposition as :func:`trsm_dist` (VERDICT r2 Next #4, second
-    half): a left multiply couples the ROWS of B but its columns are
+    Same decomposition as :func:`trsm_dist`: a left multiply couples the ROWS of B but its columns are
     independent — so B is COLUMN-sharded, the triangle replicated, and
     each device multiplies its stripe through the single-chip
-    ``blocked.trmm`` driver, which enumerates only the live triangle
-    tiles (f32 live-tile Pallas grid / f64 live-block Ozaki recursion) —
-    the triangle savings the round-2 full-matmul stripes left on the
-    table. Zero collectives (reference bar: dtrmm.cu's structure-aware
+    ``blocked.trmm`` driver, which multiplies only the live triangle
+    blocks. Zero collectives (reference bar: dtrmm.cu's structure-aware
     kernels inside each multi-GPU task)."""
     from cholesky_tpu.ops import blocked
     side = norm_side(side)
@@ -231,8 +221,7 @@ def trmm_dist(side, uplo, transa, diag, alpha, A, B, mesh: Mesh,
 
         fn = jax.shard_map(body, mesh=mesh,
                            in_specs=(P(None, None), P(None, axis)),
-                           out_specs=P(None, axis),
-                           check_vma=vma.checker_on())
+                           out_specs=P(None, axis))
         out = fn(A, Bp)
         return out[:, :n] if npd != n else out
     # right side: rows of B independent ⇒ row-shard B
@@ -246,5 +235,5 @@ def trmm_dist(side, uplo, transa, diag, alpha, A, B, mesh: Mesh,
 
     fn = jax.shard_map(body, mesh=mesh,
                        in_specs=(P(None, None), P(axis, None)),
-                       out_specs=P(axis, None), check_vma=vma.checker_on())
+                       out_specs=P(axis, None))
     return fn(A, Bp)[:m]

@@ -1,12 +1,13 @@
 """Block-cyclic distribution of a dense matrix over a device mesh axis.
 
-TPU-native replacement for the reference's multi-GPU layer (reference
+Replacement for the reference's multi-GPU layer (reference
 multigpu/multigpu.c task pool + blas/sgemm.c:432-566 output tiling): instead
 of a host-resident matrix tiled into per-GPU task closures streamed over
-PCIe, the matrix lives HBM-resident, sharded by *row block-cycles* over a
-mesh axis, and the drivers are single compiled SPMD programs (shard_map)
-whose communication is XLA/ICI collectives — the schedule the reference's
-pthread queues approximated by hand is XLA's static schedule here.
+PCIe, the matrix lives in device memory, sharded by *row block-cycles* over
+a mesh axis, and the drivers are single compiled SPMD programs (shard_map)
+whose communication is XLA collectives (NCCL over NVLink between GPUs) —
+the schedule the reference's pthread queues approximated by hand is XLA's
+static schedule here.
 
 Layout: the n×n matrix is padded to nblk·nb rows (identity-padded by the
 drivers), split into nblk row blocks of nb rows, and row block g lives on

@@ -1,6 +1,6 @@
 """Distributed block-cyclic Cholesky over a mesh axis (shard_map SPMD).
 
-TPU-native rebuild of the reference's multi-GPU tier
+Rebuild of the reference's multi-GPU tier
 (reference cuMultiGPUSpotrf, lapack/spotrf.c:400-468): there, a host loop
 tiled trailing updates into per-GPU task closures with an explicit
 synchronize barrier before each CPU diagonal factor; here the whole
@@ -11,17 +11,18 @@ factorization is ONE compiled SPMD program per device:
             the nb×nb block redundantly, cheaper than a broadcast round-trip)
             panel update via the diagonal-inverse trick      (hybridSpotrf's
             TRMM-by-inverse, spotrf.c:252-256)
-            all_gather the panel column over ICI             (≈ the PCIe
+            all_gather the panel column (NCCL over NVLink)   (≈ the PCIe
             HtoD panel streaming, sgemm.c:280-302)
             local masked trailing SYRK on owned row blocks
 
-Communication per step: one psum(nb²) + one all_gather(n·nb) — both ride
-ICI; there is no host staging and no task queue (SURVEY.md §2.5 mapping).
+Communication per step: one psum(nb²) + one all_gather(n·nb), device to
+device; there is no host staging and no task queue (SURVEY.md §2.5
+mapping).
 
-Round 2 (VERDICT r1 Next #5): the tier now runs on the SAME fast tiles as
-the single-chip driver — f32 diagonals through the in-VMEM mega kernels,
-f64 through the Ozaki refinement leaves, trailing updates through the
-tile matmuls (reference bar: the multiGPU tier reuses the GPU kernels,
+The tier runs on the SAME tiles as the single-device driver — diagonal
+blocks through the device-solver leaves (or the Ozaki refinement leaves
+under tiles='ozaki'), panel and trailing updates through the tile matmuls
+(reference bar: the multiGPU tier reuses the GPU kernels,
 spotrf.c:400-468) — and the trailing update shrinks in ``phases`` static
 width steps (K-phase outer unroll: each phase re-specializes the fori_loop
 on a narrower live window, cutting the full-width masking waste from ~2×
@@ -40,32 +41,31 @@ from jax.sharding import PartitionSpec as P
 from cholesky_tpu import config
 from cholesky_tpu.ops import lapack_ref
 from cholesky_tpu.parallel.blockcyclic import BlockCyclic, collect, distribute
+from cholesky_tpu.utils.errors import check
 from cholesky_tpu.types import Uplo, norm_uplo, is_complex, real_dtype
-from cholesky_tpu.utils import vma
 
 
 def _conj(x):
     return x.conj() if is_complex(x.dtype) else x
 
 
-def _dist_tiles(dtype, nb: int, tiles: str):
-    """Fast tile backend for the distributed tier — the same kernels as
-    the single-chip driver (reference bar: the multiGPU tier reuses the
-    GPU kernels, spotrf.c:400-468). None = oracle lapack_ref fallback."""
-    if tiles == "ref":
-        return None
+def _dist_tiles(dtype, tiles: str):
+    """Tile backend for the distributed tier — the same tiles as the
+    single-device driver (reference bar: the multiGPU tier reuses the GPU
+    kernels, spotrf.c:400-468). tiles='auto' → XLA tiles for every
+    dtype; 'ozaki' → the f64 Ozaki tiles; 'ref' → None, the oracle
+    lapack_ref leaves."""
     from cholesky_tpu.ops import blocked
     dtype = jnp.dtype(dtype)
-    if not blocked._mega_ok(nb):     # kernel leaves need 128-aligned blocks
+    check(tiles in ("auto", "ref", "ozaki"), "potrf_dist", 0,
+          f"unknown tiles {tiles!r}; expected 'auto', 'ref' or 'ozaki'")
+    if tiles == "ref":
         return None
-    if dtype == jnp.dtype(jnp.float32):
-        return blocked._PallasTiles()
-    if dtype == jnp.dtype(jnp.float64) and (
-            tiles == "fast" or config.on_tpu()):
-        # same platform policy as blocked._fast_tiles_or_none: Ozaki only
-        # where native f64 is emulated; 'fast' forces it (CPU-mesh tests)
+    if tiles == "ozaki":
+        check(dtype == jnp.dtype(jnp.float64), "potrf_dist", 0,
+              f"ozaki tiles support float64 only, got {dtype}")
         return blocked._OzakiTiles()
-    return None      # complex stays on the oracle path (XLA-native math)
+    return blocked._XlaTiles(dtype)
 
 
 def _potrf_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto",
@@ -76,7 +76,7 @@ def _potrf_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto",
     nlocal = local.shape[0]
     g = me + jnp.arange(nlocal, dtype=jnp.int32) * p      # global block ids
     gmask = g[:, None, None]
-    t = _dist_tiles(dtype, nb, tiles)
+    t = _dist_tiles(dtype, tiles)
 
     def factor_diag(diag):
         """nb×nb leaf: L = chol(diag), T = L⁻¹, info (both tril)."""
@@ -84,7 +84,7 @@ def _potrf_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto",
             Ljj, linfo = lapack_ref.potf2(Uplo.LOWER, diag)
             Ljj = jnp.tril(Ljj)
             Tjj, _ = lapack_ref.trti2(Uplo.LOWER, "N", Ljj)
-        else:     # fast leaves: f32 mega kernel / f64 Ozaki refinement
+        else:     # device-solver leaves / f64 Ozaki refinement
             Ljj, linfo = t.potf2(diag)
             Ljj = jnp.tril(Ljj)
             Tjj, _ = t.trti2(Ljj)
@@ -133,14 +133,14 @@ def _potrf_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto",
                             jnp.where(gmask == j, Ljj[None], col))
             local = lax.dynamic_update_slice(local, sel.astype(dtype),
                                              (0, 0, j * nb))
-            # --- gather the panel column (zero for blocks ≤ j) over ICI ---
+            # --- gather the panel column (zero for blocks ≤ j) ---
             contrib = jnp.where((gmask > j) & ~fail_now, newcol,
                                 jnp.zeros_like(newcol))
             gathered = lax.all_gather(contrib, axis)    # (p, nlocal, nb, nb)
             panel = gathered.transpose(1, 0, 2, 3).reshape(npad, nb)
             panel_w = panel[off:off + width]            # static live window
             if lookahead:
-                # --- lookahead (the ICI-era version of the reference's
+                # --- lookahead (the collective-era version of the reference's
                 # stream overlap, spotrf.c:311-313 / hybridSpotrf :207-259):
                 # step j+1's diagonal = A[j+1,j+1]_pre − P·Pᴴ with P = the
                 # OWNER's local panel block for row j+1, folded into one
@@ -215,8 +215,9 @@ def potrf_dist(bc: BlockCyclic, tiles: str = "auto", phases: int = 4,
     Returns (BlockCyclic factor, info). Lower triangle of the logical
     matrix holds L; the strict upper region is left as-is (garbage).
 
-    tiles='auto' runs the same fast kernels as the single-chip driver
-    (f32 Pallas mega leaves, f64 Ozaki); 'ref' forces the oracle leaves.
+    tiles as in :func:`_dist_tiles`: 'auto' runs the same tiles as the
+    single-device driver, 'ozaki' the f64 Ozaki tiles, 'ref' the oracle
+    leaves.
     phases = number of static shrinking-width stages for the trailing
     update (1 reproduces the round-1 full-width behavior).
     lookahead=True factors step j+1's diagonal alongside step j's trailing
@@ -226,14 +227,9 @@ def potrf_dist(bc: BlockCyclic, tiles: str = "auto", phases: int = 4,
     body = functools.partial(_potrf_dist_body, nblk=nblk, nb=nb, npad=npad,
                              axis=bc.axis, dtype=bc.local.dtype,
                              tiles=tiles, phases=phases, lookahead=lookahead)
-    # vma checker ON wherever the body compiles (real TPU / oracle tiles);
-    # interpret-mode Pallas bodies are the one case it cannot survive —
-    # see utils/vma.checker_on
     fn = jax.shard_map(body, mesh=bc.mesh,
                        in_specs=P(bc.axis, None, None),
-                       out_specs=(P(bc.axis, None, None), P()),
-                       check_vma=vma.checker_on(
-                           _dist_tiles(bc.local.dtype, nb, tiles) is not None))
+                       out_specs=(P(bc.axis, None, None), P()))
     local, info = fn(bc.local)
     return BlockCyclic(local=local, n=bc.n, nb=bc.nb, mesh=bc.mesh,
                        axis=bc.axis), info

@@ -7,7 +7,7 @@ cuMultiGPUSpotrf (reference blas/strsm.c multiGPU tier).
 The right-hand side is replicated (tall-skinny, nrhs ≪ n); per block step
 the diagonal solve is computed redundantly on every device (cheaper than a
 broadcast round-trip — same reasoning as the distributed potrf) and the
-substitution updates travel over ICI:
+substitution updates travel as collectives:
   forward  (L·x = b): column j of L is spread across row-block owners →
                       all_gather the per-device update rows;
   backward (Lᵀ·x = b): row block j lives on ONE owner → psum-broadcast its
@@ -64,8 +64,8 @@ def _trsm_dist_body(local, B, *, nblk, nb, npad, axis, trans):
         # all-reduce of the (npad, m) scatter buffer moves ~2·npad·m per
         # device vs ~npad·m for an all_gather of shards — accepted because
         # m = nrhs is small on this tall-skinny path and the vma-invariant
-        # typing is worth the 2× on a few-hundred-KB message (ADVICE r3 #1;
-        # a reduce_scatter+gather of only the live (nblk-j)·nb rows would
+        # typing is worth the 2× on a few-hundred-KB message (a
+        # reduce_scatter+gather of only the live (nblk-j)·nb rows would
         # reclaim it if nrhs ever grows).
         mine = jnp.zeros((npad, m), upd.dtype)
         for l in range(nlocal):               # static unroll, nlocal = nblk/p
@@ -111,9 +111,8 @@ def trsm_factor_dist(fbc: BlockCyclic, B, trans: str = "N"):
         B = jnp.pad(B, ((0, npad - B.shape[0]), (0, 0)))
     body = functools.partial(_trsm_dist_body, nblk=nblk, nb=nb, npad=npad,
                              axis=fbc.axis, trans=trans)
-    # pure-XLA body (solves + psums, no Pallas): the vma checker stays ON
-    # everywhere — every collective output is typed invariant, so the
-    # replicated out_spec is machine-checked (VERDICT r2 Next #6)
+    # pure-XLA body (solves + psums): every collective output is typed
+    # invariant, so the replicated out_spec is machine-checked
     fn = jax.shard_map(body, mesh=fbc.mesh,
                        in_specs=(P(fbc.axis, None, None), P()),
                        out_specs=P(), check_vma=True)

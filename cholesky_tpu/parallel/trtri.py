@@ -30,7 +30,6 @@ from cholesky_tpu.ops import lapack_ref
 from cholesky_tpu.parallel.blockcyclic import BlockCyclic
 from cholesky_tpu.parallel.trsm import _trsm_dist_body
 from cholesky_tpu.types import Uplo, is_complex
-from cholesky_tpu.utils import vma
 
 
 def _conj(x):
@@ -46,7 +45,7 @@ def _trtri_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto"):
     gmask = g[:, None, None]
     solve_fwd = functools.partial(_trsm_dist_body, nblk=nblk, nb=nb,
                                   npad=npad, axis=axis, trans="N")
-    t = _dist_tiles(dtype, nb, tiles)     # same kernels as the single chip
+    t = _dist_tiles(dtype, tiles)     # same tiles as the single device
 
     def step(j, carry):
         local, info = carry
@@ -56,7 +55,7 @@ def _trtri_dist_body(local, *, nblk, nb, npad, axis, dtype, tiles="auto"):
         Ljj = lax.psum(jnp.where(me == owner, dl, jnp.zeros_like(dl)), axis)
         if t is None:
             Wjj, linfo = lapack_ref.trti2(Uplo.LOWER, "N", Ljj)
-        else:           # f32 mega Newton-inverse / f64 Ozaki refinement
+        else:           # device-solver leaf / f64 Ozaki refinement
             Wjj, linfo = t.trti2(Ljj)
         Wjj = jnp.tril(Wjj)
         info = jnp.where((info == 0) & (linfo > 0),
@@ -94,15 +93,11 @@ def trtri_dist(bc: BlockCyclic, tiles: str = "auto"):
     """Distributed lower triangular inverse (non-unit). Returns
     (BlockCyclic inverse, info). tiles as in potrf_dist."""
     nblk, nb, npad = bc.local.shape
-    from cholesky_tpu.parallel.potrf import _dist_tiles
     body = functools.partial(_trtri_dist_body, nblk=nblk, nb=nb, npad=npad,
                              axis=bc.axis, dtype=bc.local.dtype, tiles=tiles)
-    # vma checker ON except for interpret-mode Pallas bodies (utils/vma)
     fn = jax.shard_map(body, mesh=bc.mesh,
                        in_specs=P(bc.axis, None, None),
-                       out_specs=(P(bc.axis, None, None), P()),
-                       check_vma=vma.checker_on(
-                           _dist_tiles(bc.local.dtype, nb, tiles) is not None))
+                       out_specs=(P(bc.axis, None, None), P()))
     local, info = fn(bc.local)
     return BlockCyclic(local=local, n=bc.n, nb=bc.nb, mesh=bc.mesh,
                        axis=bc.axis), info

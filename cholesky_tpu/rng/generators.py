@@ -1,18 +1,17 @@
 """RNG subsystem: threefry-based generators + condition-numbered test matrices.
 
-TPU-native rebuild of the reference's rng/ layer (reference include/rng.h —
+Rebuild of the reference's rng/ layer (reference include/rng.h —
 SFMT/dSFMT/MT19937/MTGP cores, declared but never wired into the build, see
 SURVEY.md §1 L4) and of the test-matrix generators
 (reference test/lapack/util/slatmc.c:11-70).
 
 Design mapping:
 - The Mersenne-family algorithms are replaced by JAX's counter-based
-  threefry (jax.random) — splittable, reproducible, and natively fast on
-  TPU; the *contracts* are kept: seeded determinism, four uniform interval
+  threefry (jax.random) — splittable, reproducible, and generated on the
+  device; the *contracts* are kept: seeded determinism, four uniform interval
   variants (reference rng.h:21-101), and SPD/HPD matrices with a prescribed
-  2-norm condition number.
-- The GPU MTGP kernels' role (bulk on-device random fills) is played by
-  :mod:`cholesky_tpu.rng.pallas_prng` (hardware PRNG inside a Pallas kernel).
+  2-norm condition number. jax.random's bulk on-device fills also play
+  the role of the GPU MTGP kernels.
 """
 
 from __future__ import annotations
@@ -83,7 +82,7 @@ def latmc(key, n, cond=2.0, dtype=jnp.float32, rank_correction: int = 2):
         vr = jax.random.normal(kv, (n, rank_correction), rdt)
         vi = jax.random.normal(kp, (n, rank_correction), rdt)
         # lax.complex keeps the target width — `vr + 1j*vi` would promote
-        # to complex128 under x64, which the TPU compiler rejects outright
+        # to complex128 under x64
         V = jax.lax.complex(vr, vi).astype(dtype)
     else:
         V = jax.random.normal(kv, (n, rank_correction), rdt).astype(dtype)
@@ -102,9 +101,8 @@ def latmc(key, n, cond=2.0, dtype=jnp.float32, rank_correction: int = 2):
 
 def latmc_pair(key, n, cond=2.0, rdtype=jnp.float32, rank_correction: int = 2):
     """``latmc`` for complex dtypes carried as an (re, im) PAIR of real
-    planes — never materializes a complex array, so it runs on TPU where
-    c64 cannot be transferred and c128 does not compile (the pair form is
-    the on-chip entry for the embedding tier, ops/complex_embed.py).
+    planes — never materializes a complex array (the pair form is the
+    entry for the embedding tier, ops/complex_embed.py).
     Same construction and exact-cond contract as :func:`latmc`."""
     rdt = jnp.dtype(rdtype)
     kd, kv, kp = jax.random.split(key, 3)
@@ -154,7 +152,7 @@ def random_triangular(key, n, uplo="L", diag="N", dtype=jnp.float32,
     k1, k2 = jax.random.split(key)
     if is_complex(dtype):
         # lax.complex keeps the target width — `re + 1j*im` promotes to
-        # complex128 under x64, which the TPU compiler rejects outright
+        # complex128 under x64
         A = jax.lax.complex(jax.random.uniform(k1, (n, n), rdt) - 0.5,
                             jax.random.uniform(k2, (n, n), rdt) - 0.5
                             ).astype(dtype)

@@ -1,6 +1,6 @@
 // Native host-side task runtime: closures, FIFO queues, worker threads, pool.
 //
-// TPU-native rebuild of the reference's multi-GPU context-pool runtime
+// Rebuild of the reference's multi-GPU context-pool runtime
 // (reference multigpu/multigpu.c):
 //   ctp_task        <- CUtask heap closure {fn, copied args, result,
 //                      complete flag, mutex+condvar}    (multigpu.c:297-306)
@@ -14,7 +14,7 @@
 //   sequential mode <- libcumultigpu_seq.a: same API, execute inline
 //                                                       (multigpu_seq.c:144-153)
 //
-// On TPU the *device* schedule belongs to XLA, so this runtime's job is the
+// The *device* schedule belongs to XLA, so this runtime's job is the
 // host side the reference also needed: fanning out independent work
 // (benchmark sweeps, oracle computation, data generation) and providing the
 // deterministic sequential variant used as the test stand-in.

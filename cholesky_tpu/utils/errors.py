@@ -1,6 +1,6 @@
 """Error handling: pluggable hooks + argument validation.
 
-TPU-native rebuild of the reference's L0 error layer:
+Rebuild of the reference's L0 error layer:
 
 - the reference's ``errorHandler`` global function-pointer hook
   (reference include/error.h:26-32, multigpu/error.c:4-11) becomes

@@ -1,8 +1,8 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh.
 
-The real TPU is a single chip (see SURVEY.md §7 and the driver contract):
-tests run on CPU with 8 virtual devices so the multi-chip shard_map tier is
-exercised without hardware, and Pallas kernels run in interpret mode.
+Tests run on CPU with 8 virtual devices so the multi-device shard_map tier
+is exercised without hardware; the GPU path is checked on the card by
+chip_smoke.py, and its CUDA lowering here by tests/test_cuda_lowering.py.
 This mirrors the reference's use of the *sequential* runtime
 libcumultigpu_seq.a as the deterministic stand-in for the threaded
 multi-GPU scheduler (reference multigpu/multigpu_seq.c).
@@ -35,7 +35,7 @@ def pytest_configure(config):
         "markers",
         "slow: heavy compile/interpret-mode test with cheaper sibling "
         "coverage; excluded by default, enabled with --runslow or "
-        "RUN_SLOW=1 (VERDICT r2 Next #8)")
+        "RUN_SLOW=1")
 
 
 def pytest_collection_modifyitems(config, items):

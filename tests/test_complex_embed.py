@@ -1,9 +1,8 @@
 """Complex routines via the interleaved real embedding vs numpy oracles.
 
-This is the path that makes z-routines runnable on TPUs (which reject the
-complex128 element type) and routes c-routines through the f32 Pallas
-kernels — the structural analog of the reference's split re/im shared-
-memory storage (cgemm.cu:7-15).
+This path (backend='embed', or (re, im) pair operands) runs c/z routines
+on the real f32/f64 tiles — the structural analog of the reference's split
+re/im shared-memory storage (cgemm.cu:7-15).
 """
 
 import jax
@@ -51,7 +50,7 @@ def test_potrf_split(dtype, uplo):
 
 
 def test_potrf_split_pair_form():
-    # the TPU-viable form for c128: operands as (re, im) real pairs
+    # the pair form for c128: operands as (re, im) real pairs
     A = hpd(jnp.complex128, seed=2)
     (fr, fi), info = ce.potrf_split("L", (A.real, A.imag), backend="xla",
                                     block_size=32)
@@ -141,7 +140,7 @@ def test_trsm_split_all_combos(side, uplo, trans, diag):
 
 
 def test_potrf_split_ozaki_backend():
-    # z-tier synthesis: complex128 → real embedding → f64 → Ozaki int8 MXU
+    # z-tier synthesis: complex128 → real embedding → f64 → Ozaki int8
     A = hpd(jnp.complex128, seed=12, cond=30.0)
     (fr, fi), info = ce.potrf_split("L", (A.real, A.imag), backend="ozaki",
                                     block_size=64)

@@ -108,7 +108,6 @@ def test_graft_dryrun_child_self_provisions():
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_dryrun")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
         [sys.executable, os.path.join(root, "__graft_entry__.py"),

@@ -1,14 +1,16 @@
-"""Whole-factorization in-VMEM mega-kernels (ops/pallas/mega.py) —
-the spotfimm2 analog (reference lapack/spotrf.cu:200-318), on the CPU
-mesh in interpret mode. On-chip behavior is covered by tools/smoke_tpu.py
-and the golden sweeps."""
+"""The diagonal-block leaf contract of the XLA tiles (ops/blocked.py
+_XlaTiles.potf2/trti2/lauu2): the on-device factor/inverse of the
+reference's spotf2/strti2 (reference lapack/spotrf.cu:26-107), at sizes
+from a few rows to a whole mid-size matrix. Each leaf runs the library
+solver and, when its result is not finite, the oracle sweep under
+lax.cond — the failure cases below exercise that rescue. On the GPU the
+same contract is checked at full size by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cholesky_tpu.ops.pallas import mega
 from cholesky_tpu.ops import blocked
 from cholesky_tpu.rng import generators
 from tests.util import assert_close
@@ -18,10 +20,13 @@ def spd(n, cond=50.0, seed=0):
     return generators.latmc(jax.random.PRNGKey(seed), n, cond, jnp.float32)
 
 
+TILES = blocked._XlaTiles(jnp.float32)
+
+
 @pytest.mark.parametrize("n", [8, 64, 128, 256, 512])
 def test_potrf_vmem(n):
     A = spd(n)
-    L, info = mega.potrf_vmem_f32(A)
+    L, info = TILES.potf2(A)
     assert int(info) == 0
     Ln = np.asarray(L, np.float64)
     # strict upper must be exactly zero
@@ -35,7 +40,7 @@ def test_potrf_vmem_only_lower_read():
     # the strict upper triangle of the input must never be read
     A = np.array(spd(256))
     A[np.triu_indices(256, 1)] = np.nan
-    L, info = mega.potrf_vmem_f32(jnp.asarray(A))
+    L, info = TILES.potf2(jnp.asarray(A))
     assert int(info) == 0
     assert np.isfinite(np.asarray(L)).all()
 
@@ -44,19 +49,19 @@ def test_potrf_vmem_nonpd_info_and_finite():
     # failed pivot: 1-based index, clamped to 1, everything stays finite
     A = np.array(spd(256, cond=10.0))
     A[4, 4] = -1.0
-    L, info = mega.potrf_vmem_f32(jnp.asarray(A))
+    L, info = TILES.potf2(jnp.asarray(A))
     assert int(info) == 5
     assert np.isfinite(np.asarray(L)).all()
 
 
 def test_potrf_vmem_nan_pivot():
     # NaN pivot sets info (reference checks `aii <= zero || isnan(aii)`,
-    # lapack/spotrf.c:47-51) and the sweep freezes at it (reference break
-    # semantics): the input NaN stays AT its own position, nothing else
-    # becomes non-finite
+    # lapack/spotrf.c:47-51) and the rescue sweep freezes at it (reference
+    # break semantics): the input NaN stays AT its own position, nothing
+    # else becomes non-finite
     A = np.array(spd(256, cond=10.0))
     A[7, 7] = np.nan
-    L, info = mega.potrf_vmem_f32(jnp.asarray(A))
+    L, info = TILES.potf2(jnp.asarray(A))
     assert int(info) == 8
     Ln = np.asarray(L)
     bad = {tuple(ix) for ix in np.argwhere(~np.isfinite(Ln))}
@@ -66,8 +71,8 @@ def test_potrf_vmem_nan_pivot():
 @pytest.mark.parametrize("n", [8, 64, 128, 256, 512])
 def test_trtri_vmem(n):
     A = spd(n)
-    F, _ = mega.potrf_vmem_f32(A)
-    W, info = mega.trtri_vmem_f32(F)
+    F, _ = TILES.potf2(A)
+    W, info = TILES.trti2(F)
     assert int(info) == 0
     Wn = np.asarray(W, np.float64)
     assert np.all(np.triu(Wn, 1) == 0.0)
@@ -83,94 +88,19 @@ def test_trtri_vmem_zero_diag_info():
     A = np.array(np.tril(np.asarray(spd(256))), np.float32)
     np.fill_diagonal(A, 1.0)
     A[9, 9] = 0.0
-    W, info = mega.trtri_vmem_f32(jnp.asarray(A))
+    W, info = TILES.trti2(jnp.asarray(A))
     assert int(info) == 10
     assert np.isfinite(np.asarray(W)).all()
 
 
-def test_blocked_dispatch_uses_mega():
-    # _PallasTiles.potf2/trti2 must route VMEM-sized blocks to the mega
-    # kernels (the dispatch-honesty item, VERDICT r1 Next #10)
-    assert blocked._mega_ok(512)
-    assert blocked._mega_ok(1024)
-    assert not blocked._mega_ok(1025)
-    assert blocked._mega_ok(2048)     # r3: HBM-panel kernel reach
-    assert blocked._mega_ok(1280)
-    assert not blocked._mega_ok(2049)
-    assert blocked._mega_ok(4096)     # r4: potrf HBM cap lifted
-    assert blocked._mega_ok(8192)     # r4: fori k-loop reaches 8192
-    assert not blocked._mega_ok(8320)  # beyond POTRF_HBM_MAX_N
-    assert blocked._mega_ok(4096, "trtri")
-    assert not blocked._mega_ok(4224, "trtri")  # trtri cap stays 4096
-    assert not blocked._mega_ok(8192, "trtri")
-    assert not blocked._mega_ok(192)  # not a multiple of 128, > 128
-
-
-def test_mega_crossover_tunable(monkeypatch):
-    # the HBM crossover honors the per-device tuning key mega_max_n
-    # (VERDICT r3 Next #6: autotune decides where the mono-kernel stops
-    # winning over the blocked recursion)
-    from cholesky_tpu import tuning
-    orig = tuning.get_params
-
-    def fake(op, device_kind=None):
-        p = orig(op, device_kind)
-        if op == "potrf_f32":
-            p["mega_max_n"] = 2048
-        return p
-
-    monkeypatch.setattr("cholesky_tpu.tuning.get_params", fake)
-    assert blocked._mega_ok(2048)
-    assert not blocked._mega_ok(2176)
-    assert blocked._mega_ok(1024)   # VMEM tier unaffected
-
-
-@pytest.mark.slow
-def test_recursion_reenters_mega_at_intermediate_diagonals(monkeypatch):
-    """Past the top-level crossover the recursion's diagonal sub-factors
-    must re-enter the mono kernels as soon as they fit (r4): with the
-    crossover pinned to 2048, public potrf at 2560 must run as TWO
-    1280-sized HBM mega dispatches (plus trsm/syrk), not recurse to
-    256-leaves."""
-    from cholesky_tpu import tuning
-    orig = tuning.get_params
-
-    def fake(op, device_kind=None):
-        p = orig(op, device_kind)
-        if op == "potrf_f32":
-            p["mega_max_n"] = 2048
-        return p
-
-    monkeypatch.setattr("cholesky_tpu.tuning.get_params", fake)
-    calls = []
-    orig_hbm = mega.potrf_hbm_f32
-
-    def spy(A):
-        calls.append(A.shape[0])
-        return orig_hbm(A)
-
-    monkeypatch.setattr(blocked._pm, "potrf_hbm_f32", spy)
-    n = 2560
-    A = spd(n, cond=20.0)
-    F, info = blocked.potrf("L", A, backend="pallas")
-    assert int(info) == 0
-    assert calls == [1280, 1280], calls
-    Ln = np.asarray(F, np.float64)
-    An = np.asarray(A, np.float64)
-    ref = np.linalg.cholesky(np.tril(An) + np.tril(An, -1).T)
-    assert_close(np.tril(Ln), ref, jnp.float32, 8 * n,
-                 "intermediate-mega potrf")
-
-
 @pytest.mark.parametrize("unit", [False, True])
 def test_blocked_trti2_mega_unit(unit):
-    # the unit-diag path through _PallasTiles.trti2 must preserve the
+    # the unit-diag path through _XlaTiles.trti2 must preserve the
     # caller's diagonal and invert with implicit ones
     n = 256
     F = generators.random_triangular(jax.random.PRNGKey(3), n, "L",
                                      "U" if unit else "N", jnp.float32)
-    t = blocked._PallasTiles()
-    W, info = t.trti2(F, unit=unit)
+    W, info = TILES.trti2(F, unit=unit)
     assert int(info) == 0
     Fn = np.tril(np.asarray(F, np.float64))
     if unit:
@@ -187,14 +117,14 @@ def test_blocked_trti2_mega_unit(unit):
 
 
 # --------------------------------------------------------------------------
-# HBM-panel mega kernels (r3): matrix in HBM, 128-row panels through VMEM
+# whole mid-size matrices through one leaf
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [1280, pytest.param(2048, marks=pytest.mark.slow),
                                pytest.param(2560, marks=pytest.mark.slow)])
 def test_potrf_hbm(n):
     A = spd(n)
-    L, info = mega.potrf_hbm_f32(A)
+    L, info = TILES.potf2(A)
     assert int(info) == 0
     Ln = np.asarray(L, np.float64)
     assert np.all(np.triu(Ln, 1) == 0.0)
@@ -208,7 +138,7 @@ def test_potrf_hbm_only_lower_read_and_freeze():
     A = np.array(spd(n, cond=10.0))
     A[np.triu_indices(n, 1)] = np.nan       # upper must never be read
     A[700, 700] = -3.0                      # failed pivot mid-matrix
-    L, info = mega.potrf_hbm_f32(jnp.asarray(A))
+    L, info = TILES.potf2(jnp.asarray(A))
     assert int(info) == 701
     Ln = np.asarray(L)
     assert np.isfinite(Ln).all()
@@ -224,8 +154,8 @@ def test_potrf_hbm_only_lower_read_and_freeze():
 @pytest.mark.parametrize("n", [1280, pytest.param(2048, marks=pytest.mark.slow),
                                pytest.param(2560, marks=pytest.mark.slow)])
 def test_trtri_hbm(n):
-    F, _ = mega.potrf_hbm_f32(spd(n))     # factor: condition ~sqrt(cond)
-    W, info = mega.trtri_hbm_f32(F)
+    F, _ = TILES.potf2(spd(n))     # factor: condition ~sqrt(cond)
+    W, info = TILES.trti2(F)
     assert int(info) == 0
     Wn = np.asarray(W, np.float64)
     assert np.all(np.triu(Wn, 1) == 0.0)
@@ -237,9 +167,8 @@ def test_trtri_hbm(n):
 @pytest.mark.parametrize("n", [256, 1280,
                                pytest.param(2048, marks=pytest.mark.slow)])
 def test_lauum_hbm(n):
-    F, _ = (mega.potrf_vmem_f32 if n <= mega.MAX_N
-            else mega.potrf_hbm_f32)(spd(n))
-    P = mega.lauum_hbm_f32(F)
+    F, _ = TILES.potf2(spd(n))
+    P = TILES.lauu2(F)
     Pn = np.asarray(P, np.float64)
     assert np.all(np.triu(Pn, 1) == 0.0)
     Fn = np.tril(np.asarray(F, np.float64))
@@ -251,28 +180,8 @@ def test_lauum_hbm_only_lower_read():
     n = 256
     A = np.array(np.tril(np.asarray(spd(n))), np.float32)
     A[np.triu_indices(n, 1)] = np.nan
-    P = mega.lauum_hbm_f32(jnp.asarray(A))
+    P = TILES.lauu2(jnp.asarray(A))
     assert np.isfinite(np.asarray(P)).all()
-
-
-def test_public_lauum_routes_mega(monkeypatch):
-    # the whole-matrix lauum path must hand 128-multiple sizes to the mono
-    # kernel (and the numbers must agree with the recursion)
-    calls = []
-    orig = mega.lauum_hbm_f32
-
-    def spy(A):
-        calls.append(A.shape[0])
-        return orig(A)
-
-    monkeypatch.setattr(blocked._pm, "lauum_hbm_f32", spy)
-    n = 640
-    F = np.tril(np.asarray(spd(n)))
-    R = blocked.lauum("L", jnp.asarray(F), backend="pallas")
-    assert calls == [n], calls
-    ref = np.tril(F.astype(np.float64).T @ F.astype(np.float64))
-    assert_close(np.tril(np.asarray(R, np.float64)), ref, jnp.float32,
-                 8 * n, "public lauum mega route")
 
 
 def test_trtri_hbm_zero_diag_info():
@@ -280,20 +189,6 @@ def test_trtri_hbm_zero_diag_info():
     A = np.array(np.tril(np.asarray(spd(n))), np.float32)
     np.fill_diagonal(A, 1.0)
     A[599, 599] = 0.0
-    W, info = mega.trtri_hbm_f32(jnp.asarray(A))
+    W, info = TILES.trti2(jnp.asarray(A))
     assert int(info) == 600
     assert np.isfinite(np.asarray(W)).all()
-
-
-def test_public_potrf_routes_hbm_sizes():
-    # public potrf at a 128-multiple in (1024, 2048] must produce correct
-    # results through the direct whole-matrix path (blocked.potrf fast
-    # path -> _PallasTiles.potf2 -> potrf_hbm_f32)
-    n = 1280
-    A = spd(n)
-    F, info = blocked.potrf("L", A, backend="pallas")
-    assert int(info) == 0
-    Fn = np.tril(np.asarray(F, np.float64))
-    An = np.asarray(A, np.float64)
-    ref = np.linalg.cholesky(np.tril(An) + np.tril(An, -1).T)
-    assert_close(Fn, ref, jnp.float32, 8 * n, "public potrf via hbm mega")

@@ -22,13 +22,11 @@ def rnd(seed, shape, spread=False):
     return jnp.asarray(x)
 
 
-@pytest.fixture(params=[True, False], ids=["hoist", "prehoist"])
-def hoist_gate(request, monkeypatch):
-    """Force BOTH Ozaki recursion variants through the size gate
-    (blocked._ozaki_hoist): the tuned default routes small test sizes to
-    the per-call-peel variant, so the hoisted recursions would silently
-    lose coverage without this."""
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", request.param)
+@pytest.fixture(params=[64, 128], ids=["nb64", "nb128"])
+def nb(request):
+    """Leaf width of the Ozaki recursions: 64 splits the 200-row operands
+    into four uneven leaves, 128 pads them to two equal ones — both shapes
+    of the shared-peel indexing."""
     return request.param
 
 
@@ -69,8 +67,8 @@ def test_k_beyond_exact_bound_chunks():
 
 
 def test_dpotrf_f64_boundary_rescue():
-    """Non-PD detection in the Ozaki leaves is an f64 verdict (VERDICT r3
-    Next #9): the f32 Pallas leaf flags borderline pivots, and a flagged
+    """Non-PD detection in the Ozaki leaves is an f64 verdict: the f32
+    leaf flags borderline pivots, and a flagged
     leaf is re-factored by the true-f64 reference potf2 under lax.cond
     (ops/blocked.py _OzakiTiles.potf2).  A matrix PD in f64 but losing
     definiteness under f32 rounding therefore factors with info=0 —
@@ -146,12 +144,12 @@ def test_dtrsm_ozaki_backend():
 
 @pytest.mark.parametrize("uplo", ["L", "U"])
 @pytest.mark.parametrize("diag", ["N", "U"])
-def test_dtrtri_ozaki_hoisted_variants(uplo, diag, hoist_gate):
+def test_dtrtri_ozaki_hoisted_variants(uplo, diag, nb):
     # trtri routes through _OzakiTiles.trtri_lower (hoisted shared peel
-    # of Lᵀ, VERDICT r4 Next #2): cover upper + unit canonicalizations
+    # of Lᵀ): cover upper + unit canonicalizations
     T = generators.random_triangular(jax.random.PRNGKey(9), 200, uplo, diag,
                                      jnp.float64)
-    W, info = blocked.trtri(uplo, diag, T, backend="ozaki", block_size=64)
+    W, info = blocked.trtri(uplo, diag, T, backend="ozaki", block_size=nb)
     assert int(info) == 0
     tri = np.tril if uplo == "L" else np.triu
     M = tri(np.asarray(T))
@@ -170,16 +168,16 @@ def test_dtrtri_ozaki_hoisted_variants(uplo, diag, hoist_gate):
 @pytest.mark.parametrize("uplo", ["L", "U"])
 @pytest.mark.parametrize("trans", ["N", "T"])
 @pytest.mark.parametrize("diag", ["N", "U"])
-def test_dtrsm_ozaki_all_combos(side, uplo, trans, diag, hoist_gate):
+def test_dtrsm_ozaki_all_combos(side, uplo, trans, diag, nb):
     # the 16 canonicalized combos all land on the hoisted-peel
-    # _OzakiTiles.trsm_lln / trsm_llt recursions (VERDICT r4 Next #2);
-    # reference per-combination kernels blas/dtrsm.cu
+    # _OzakiTiles.trsm_lln / trsm_llt recursions; reference
+    # per-combination kernels blas/dtrsm.cu
     na = 200 if side == "L" else 96
     T = generators.random_triangular(jax.random.PRNGKey(3), na, uplo, diag,
                                      jnp.float64)
     B = jnp.asarray(np.random.RandomState(4).randn(200, 96))
     X = blocked.trsm(side, uplo, trans, diag, 0.9, T, B,
-                     backend="ozaki", block_size=64)
+                     backend="ozaki", block_size=nb)
     M = np.tril(np.asarray(T)) if uplo == "L" else np.triu(np.asarray(T))
     if diag == "U":
         np.fill_diagonal(M, 1.0)
@@ -192,10 +190,10 @@ def test_dtrsm_ozaki_all_combos(side, uplo, trans, diag, hoist_gate):
     assert rel < 1e-8, (side, uplo, trans, diag, rel)
 
 
-def test_dsyrk_ozaki_single_peel(hoist_gate):
+def test_dsyrk_ozaki_single_peel(nb):
     # public syrk on the Ozaki tiles goes through syrk_ln (one peel for
-    # both sides); verify against the two-peel generic mm formulation
-    A = jnp.asarray(np.random.RandomState(7).randn(200, 96))
+    # both sides); verify against the numpy product at two widths
+    A = jnp.asarray(np.random.RandomState(7).randn(200, nb))
     C = jnp.asarray(np.random.RandomState(8).randn(200, 200))
     out = blocked.syrk("L", "N", 0.5, A, -1.0, C, backend="ozaki")
     ref = 0.5 * (np.asarray(A) @ np.asarray(A).T) - np.asarray(C)
@@ -217,8 +215,8 @@ def test_dgemm_ozaki_backend():
 
 @pytest.mark.parametrize("scaling", ["rows", "decay"])
 def test_dtrmm_ozaki_bad_row_scaling(scaling, monkeypatch):
-    """Pin live-block trmm accuracy under adversarial scalings (ADVICE r3
-    #3): trmm_lln hoists ONE row-scale from the full row of L for every
+    """Pin live-block trmm accuracy under adversarial scalings: trmm_lln
+    hoists ONE row-scale from the full row of L for every
     sub-block, so dropped-pair truncation is relative to the row max, not
     the block max.  Two stress cases: (a) per-row scales spanning 10^±8
     (captured exactly by the per-row split) and (b) within-row decay of
@@ -250,8 +248,7 @@ def test_dtrmm_ozaki_bad_row_scaling(scaling, monkeypatch):
 @pytest.mark.parametrize("transa", ["N", "T"])
 @pytest.mark.parametrize("diag", ["N", "U"])
 def test_dtrmm_ozaki_live_blocks(side, uplo, transa, diag, monkeypatch):
-    """f64 trmm over the live-block tile recursion (VERDICT r2 #4): force
-    a small leaf so the recursion actually splits, all 16 real combos."""
+    """f64 trmm over the live-block tile recursion: force a small leaf so the recursion actually splits, all 16 real combos."""
     monkeypatch.setattr(blocked, "TRMM_TILES_NB", 64)
     n = 200
     r = np.random.RandomState(hash((side, uplo, transa, diag)) % 2**31)
@@ -268,95 +265,13 @@ def test_dtrmm_ozaki_live_blocks(side, uplo, transa, diag, monkeypatch):
     assert scaled < 1e-8, scaled
 
 
-def test_matmul_presplit_fused_matches_xla():
-    """Fused group-sum kernel (ops/pallas/ozaki_mm.py) vs the XLA
-    per-group formulation: same slices in, answers agree to the f32-pair
-    accumulation budget (~2^-48 of the largest partial), and both hit the
-    dropped-pair accuracy bound vs numpy."""
-    from cholesky_tpu.ops.ozaki import split_rows, matmul_presplit
-    A = rnd(11, (192, 640), spread=True)
-    B = rnd(12, (640, 160), spread=True)
-    As, asc = split_rows(A, 6)
-    Bs, bsc = split_rows(jnp.asarray(np.asarray(B).T), 6)
-    C0 = np.asarray(matmul_presplit(As, asc, Bs, bsc, fused=False))
-    C1 = np.asarray(matmul_presplit(As, asc, Bs, bsc, fused=True))
-    ref = np.asarray(A) @ np.asarray(B)
-    scale = np.max(np.abs(ref))
-    assert np.max(np.abs(C1 - C0)) / scale < 1e-12, \
-        np.max(np.abs(C1 - C0)) / scale
-    assert np.max(np.abs(C1 - ref)) / scale < 1e-9
-
-
-def test_matmul_fused_exact_small_ints():
-    # exact f32-pair accumulation: integer products within the pair's 48
-    # mantissa bits reproduce exactly through the fused kernel too
-    from cholesky_tpu.ops.ozaki import split_rows, matmul_presplit
-    A = jnp.asarray(np.random.RandomState(2).randint(-50, 50, (64, 64)),
-                    jnp.float64)
-    B = jnp.asarray(np.random.RandomState(3).randint(-50, 50, (64, 64)),
-                    jnp.float64)
-    As, asc = split_rows(A, 4)
-    Bs, bsc = split_rows(jnp.asarray(np.asarray(B).T), 4)
-    C = matmul_presplit(As, asc, Bs, bsc, fused=True)
-    np.testing.assert_array_equal(np.asarray(C),
-                                  np.asarray(A) @ np.asarray(B))
-
-
-def test_matmul_fused_cancellation():
-    """Newton-iteration shape: T = L·L⁻¹ ≈ I cancels the k-partials to
-    ~2^-50 of their magnitude — the fused pair accumulation must not
-    surface its 2^-48-of-partial noise above the Ozaki dropped-pair
-    floor. Pins the multi-k-step two-sum path (k > bk forces cross-step
-    pair accumulation)."""
-    from cholesky_tpu.ops.ozaki import split_rows, matmul_presplit
-    n = 640  # > DEFAULT_BK so the pair accumulates across k-steps
-    r = np.random.RandomState(9)
-    G = r.randn(n, n)
-    Lnp = np.linalg.cholesky(G @ G.T + n * np.eye(n))
-    Wnp = np.linalg.inv(Lnp)
-    As, asc = split_rows(jnp.asarray(Lnp), 6)
-    Bs, bsc = split_rows(jnp.asarray(Wnp.T), 6)
-    T = np.asarray(matmul_presplit(As, asc, Bs, bsc, fused=True))
-    ref = Lnp @ Wnp  # ≈ I
-    err = np.max(np.abs(T - ref))
-    assert err < n * 2.0 ** -40, err
-
-
-def test_peel_f32pair_gridded_exact():
-    """The 2D-gridded peel kernel (ozaki_split.py) is bit-exact against
-    the XLA round-and-subtract loop (_split_rows' CPU branch) — the peel
-    arithmetic is exact by construction, so any deviation is a kernel
-    indexing/blocking bug. Non-multiple shapes exercise the pad+crop."""
-    from cholesky_tpu.ops.pallas.ozaki_split import peel_f32pair
-
-    r = np.random.RandomState(0)
-    x = r.uniform(-0.5, 0.5, (200, 300))
-    rh = x.astype(np.float32)
-    rl = (x - rh.astype(np.float64)).astype(np.float32)
-    got = np.asarray(peel_f32pair(jnp.asarray(rh), jnp.asarray(rl),
-                                  slices=6))
-    ph, pl_ = rh.copy(), rl.copy()
-    outs = []
-    for _ in range(6):
-        q = np.round(ph * 128.0)
-        outs.append(q.astype(np.int8))
-        d = (ph * 128.0 - q).astype(np.float32)
-        rlb = (pl_ * 128.0).astype(np.float32)
-        t = (d + rlb).astype(np.float32)
-        pl_ = (rlb - (t - d)).astype(np.float32)
-        ph = t
-    np.testing.assert_array_equal(got, np.stack(outs))
-
-
-def test_dpotrf_inverse_leaf_refinement(monkeypatch):
-    """The Newton-inverse refinement (CHOLESKY_TPU_POTF2_INV=1) matches
-    the triangular-solve formulation to the refinement's own error floor
-    and keeps the non-PD info semantics (the f64 rescue path)."""
-    monkeypatch.setenv("CHOLESKY_TPU_POTF2_INV", "0")
+def test_dpotrf_inverse_leaf_refinement():
+    """The refined f32 leaf (f32 factor + one Ozaki correction) reaches
+    the refinement's own error floor, agrees with native f64 potrf, and
+    keeps the non-PD info semantics (the f64 rescue path)."""
     A = latmc(jax.random.PRNGKey(5), 320, 100.0, jnp.float64)
     L0, i0 = blocked.potrf("L", A, backend="ozaki")
-    monkeypatch.setenv("CHOLESKY_TPU_POTF2_INV", "1")
-    L1, i1 = blocked.potrf("L", A, backend="ozaki")
+    L1, i1 = blocked.potrf("L", A, backend="xla")
     assert int(i0) == int(i1) == 0
     An = np.asarray(A)
     Af = np.tril(An) + np.tril(An, -1).T
@@ -367,45 +282,8 @@ def test_dpotrf_inverse_leaf_refinement(monkeypatch):
     agree = np.max(np.abs(np.asarray(L0) - np.asarray(L1))) \
         / np.max(np.abs(np.asarray(L0)))
     assert agree < 1e-9, agree
-    # non-PD: identical pivot through the rescue regardless of the flag
+    # non-PD: the pivot comes out of the f64 rescue
     Abad = np.array(Af)
     Abad[100, 100] = -3.0
     _, ib = blocked.potrf("L", jnp.asarray(Abad), backend="ozaki")
     assert int(ib) == 101
-
-
-def test_ozaki_hoist_gate_routing(monkeypatch):
-    """The tuned ozaki_f64.hoist_min_n threshold picks the recursion
-    variant per driver call (same-day A/B: the hoisted bundle loses at
-    mid sizes — bench_results/dhoist_ab_r5.json)."""
-    from cholesky_tpu import tuning
-
-    real = tuning.get_params
-
-    def fake(op, device_kind=None):
-        if op == "ozaki_f64":
-            return {"hoist_min_n": 512}
-        return real(op, device_kind)
-
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", None)
-    import cholesky_tpu.tuning as tuning_mod
-    monkeypatch.setattr(tuning_mod, "get_params", fake)
-    assert not blocked._ozaki_hoist(256)
-    assert blocked._ozaki_hoist(512)
-    assert blocked._ozaki_hoist(None)   # BLAS entries without a square n
-    # override wins over the table in both directions
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", True)
-    assert blocked._ozaki_hoist(64)
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", False)
-    assert not blocked._ozaki_hoist(1 << 20)
-
-
-def test_dpotrf_gate_variants_agree(hoist_gate):
-    # the two recursion variants must produce the same factor to f64
-    # refinement accuracy — the gate is a perf knob, never a semantics one
-    A = latmc(jax.random.PRNGKey(11), 192, 50.0, jnp.float64)
-    L, info = blocked.potrf("L", A, backend="ozaki", block_size=64)
-    assert int(info) == 0
-    ref = np.linalg.cholesky(np.asarray(A))
-    rel = np.max(np.abs(np.tril(np.asarray(L)) - ref)) / np.max(np.abs(ref))
-    assert rel < 1e-9, (hoist_gate, rel)

@@ -1,8 +1,9 @@
-"""Pallas tile kernels vs the oracle tier (interpret mode on CPU).
+"""f32 tile layer (ops/blocked.py _XlaTiles: mm, syrk, and the
+potf2/trti2/lauu2 leaves) vs the oracle tier.
 
 The analog of the reference's test/blas/cusgemm.c etc. — kernel vs naive
-ref — with interpret mode standing in for the device, the same role the
-sequential runtime plays for the threaded one in the reference.
+ref. On the GPU these tiles are cuBLAS GEMMs and cuSOLVER/cuBLAS leaves;
+chip_smoke.py checks them there at full size.
 """
 
 import jax
@@ -10,10 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cholesky_tpu.ops.pallas import matmul_f32, syrk_f32, potf2_f32, \
-    trti2_f32, lauu2_f32
+from cholesky_tpu.ops import blocked
 from cholesky_tpu.rng import generators
 from tests.util import assert_close, to_np128
+
+
+T32 = blocked._XlaTiles(jnp.float32)
 
 
 def rnd(seed, shape):
@@ -25,27 +28,27 @@ def rnd(seed, shape):
                                    (100, 50, 70), (512, 256, 1000)])
 def test_matmul(m, n, k):
     A, B, C = rnd(0, (m, k)), rnd(1, (k, n)), rnd(2, (m, n))
-    out = matmul_f32(A, B, C, alpha=0.9, beta=-0.4)
+    out = T32.mm(A, B, alpha=0.9, beta=-0.4, C=C)
     ref = 0.9 * to_np128(A) @ to_np128(B) - 0.4 * to_np128(C)
-    assert_close(out, ref, jnp.float32, 2 * k + 3, "pallas matmul")
+    assert_close(out, ref, jnp.float32, 2 * k + 3, "tile matmul")
 
 
 def test_matmul_beta_zero():
     A, B = rnd(3, (256, 256)), rnd(4, (256, 256))
-    out = matmul_f32(A, B, alpha=1.0, beta=0.0)
+    out = T32.mm(A, B, alpha=1.0, beta=0.0)
     ref = to_np128(A) @ to_np128(B)
-    assert_close(out, ref, jnp.float32, 2 * 256 + 3, "pallas matmul beta=0")
+    assert_close(out, ref, jnp.float32, 2 * 256 + 3, "tile matmul beta=0")
 
 
 @pytest.mark.parametrize("n,k", [(256, 256), (384, 512), (130, 100)])
 def test_syrk(n, k):
     A, C = rnd(5, (n, k)), rnd(6, (n, n))
-    out = syrk_f32(A, C, alpha=-1.0, beta=1.0)
+    out = blocked.syrk("L", "N", -1.0, A, 1.0, C)   # over T32.syrk_ln
     full = -to_np128(A) @ to_np128(A).T + to_np128(C)
     mask = np.tril(np.ones((n, n)))
     ref = np.where(mask > 0, full, to_np128(C))
-    assert_close(out, ref, jnp.float32, 2 * k + 3, "pallas syrk")
-    # strict upper must be bit-identical to C (aliased passthrough)
+    assert_close(out, ref, jnp.float32, 2 * k + 3, "tile syrk")
+    # strict upper must be bit-identical to C
     np.testing.assert_array_equal(np.triu(np.asarray(out), 1),
                                   np.triu(np.asarray(C), 1))
 
@@ -53,7 +56,7 @@ def test_syrk(n, k):
 @pytest.mark.parametrize("n", [128, 256])
 def test_potf2_leaf(n):
     A = generators.latmc(jax.random.PRNGKey(7), n, 50.0, jnp.float32)
-    L, info = potf2_f32(A)
+    L, info = T32.potf2(A)
     assert int(info) == 0
     ref = np.linalg.cholesky(to_np128(A))
     assert_close(np.asarray(L), ref, jnp.float32, 8 * n, "potf2 leaf")
@@ -65,7 +68,7 @@ def test_potf2_leaf_nonpd_info():
     A = np.asarray(generators.latmc(jax.random.PRNGKey(8), 128, 10.0,
                                     jnp.float32)).copy()
     A[40, 40] = -3.0
-    L, info = potf2_f32(jnp.asarray(0.5 * (A + A.T), jnp.float32))
+    L, info = T32.potf2(jnp.asarray(0.5 * (A + A.T), jnp.float32))
     assert 1 <= int(info) <= 41
     assert np.isfinite(np.asarray(L)).all()
 
@@ -76,7 +79,7 @@ def test_potf2_leaf_nan_pivot_sets_info():
     A = np.asarray(generators.latmc(jax.random.PRNGKey(9), 128, 10.0,
                                     jnp.float32)).copy()
     A[17, 17] = np.nan
-    L, info = potf2_f32(jnp.asarray(A, jnp.float32))
+    L, info = T32.potf2(jnp.asarray(A, jnp.float32))
     assert 1 <= int(info) <= 18
 
 
@@ -85,7 +88,7 @@ def test_potf2_leaf_nan_pivot_sets_info():
 def test_trti2_leaf(n, unit):
     A = generators.random_triangular(jax.random.PRNGKey(9), n, "L",
                                      "U" if unit else "N", jnp.float32)
-    T, info = trti2_f32(A, unit=unit)
+    T, info = T32.trti2(A, unit=unit)
     assert int(info) == 0
     Anp = to_np128(A)
     if unit:
@@ -105,7 +108,7 @@ def test_trti2_singular_info():
     A = np.asarray(generators.random_triangular(
         jax.random.PRNGKey(10), 128, "L", "N", jnp.float32)).copy()
     A[33, 33] = 0.0
-    _, info = trti2_f32(jnp.asarray(A))
+    _, info = T32.trti2(jnp.asarray(A))
     assert int(info) == 34
 
 
@@ -113,7 +116,7 @@ def test_trti2_singular_info():
 def test_lauu2_leaf(n):
     A = generators.random_triangular(jax.random.PRNGKey(11), n, "L", "N",
                                      jnp.float32)
-    out = lauu2_f32(A)
+    out = T32.lauu2(A)
     L = np.tril(to_np128(A))
     ref_l = np.tril(L.T @ L)
     got = np.asarray(out)

@@ -129,14 +129,13 @@ def test_potrf_dist_phases_agree(mesh, phases):
 
 @pytest.mark.slow   # Ozaki-interpret leaves: heaviest single test
 def test_potrf_dist_fast_f64_tiles(mesh):
-    # tiles='fast' forces the Ozaki leaves even on the CPU mesh (VERDICT
-    # r1 Next #5: the dist tier must run the same kernels as the
-    # single-chip driver); accuracy is Ozaki-class (~2^-42 products +
-    # refinement), far inside the 1e-6 BASELINE target but wider than
-    # native f64 — hence the widened bound
+    # tiles='ozaki' runs the Ozaki leaves (the dist tier runs the same
+    # tiles as the single-device driver); accuracy is Ozaki-class (~2^-42
+    # products + refinement), far inside the 1e-6 BASELINE target but
+    # wider than native f64 — hence the widened bound
     n = 256
     A = spd(n, jnp.float64, seed=8)
-    F, info = dpotrf.potrf_sharded("L", A, mesh, nb=128, tiles="fast")
+    F, info = dpotrf.potrf_sharded("L", A, mesh, nb=128, tiles="ozaki")
     assert int(info) == 0
     ref = np.linalg.cholesky(to_np128(A))
     diff = np.max(np.abs(np.tril(np.asarray(F)) - ref))
@@ -144,7 +143,8 @@ def test_potrf_dist_fast_f64_tiles(mesh):
 
 
 def test_potrf_dist_fast_f32_nonpd(mesh):
-    # non-PD through the mega-kernel leaves: correct 1-based pivot, finite
+    # non-PD through the device-solver leaves (rescued by the sweep):
+    # correct 1-based pivot, finite
     A = np.asarray(spd(256, seed=9)).copy()
     A[130, 130] = -3.0
     A = jnp.asarray(0.5 * (A + A.T))
@@ -188,7 +188,7 @@ def _shard_bytes(x):
 
 
 def test_potrf_dist_cross_device_agreement(mesh):
-    # VERDICT r2 Next #6: the replicated outputs of the dist tier must be
+    # the replicated outputs of the dist tier must be
     # BIT-identical on every device — any divergence means a device
     # computed from stale/wrong collective data and the P() out_spec is
     # papering over it

@@ -1,6 +1,6 @@
 """Machine-checked communication schedule of the distributed tier.
 
-VERDICT r4 Next #6: correctness of the multi-chip tier is covered by
+Correctness of the multi-device tier is covered by
 tests/test_parallel.py, but nothing pinned *what collectives* the compiled
 SPMD program issues — a refactor regressing from one all_gather + O(1)
 psums per step to something unrolled (program size O(nblk)) or quadratic

@@ -1,4 +1,4 @@
-"""Trace helper contract (SURVEY §5: jax.profiler is the TPU-native analog
+"""Trace helper contract (SURVEY §5: jax.profiler is the JAX analog
 of the reference's in-test CUevent timing, test/lapack/cuspotrf.c:129-141).
 
 The helpers must (a) actually produce a trace artifact around a jitted

@@ -32,8 +32,8 @@ def test_ozaki_potf2_nonpd_stays_finite():
 
 
 def test_ozaki_potf2_near_singular_finite():
-    # PD in f64 (det = 1e-12) but pivot ~0 at f32: the r4 f64 rescue
-    # (VERDICT r3 Next #9) re-factors the flagged leaf at true f64, so
+    # PD in f64 (det = 1e-12) but pivot ~0 at f32: the f64 rescue
+    # re-factors the flagged leaf at true f64, so
     # this now factors with info=0 — matching reference dpotrf. The
     # finite-output guarantee is unchanged.
     A = jnp.asarray([[1.0, 0.5], [0.5, 0.25 + 1e-12]])
@@ -122,11 +122,3 @@ def test_pair_backend_ref_honored():
     A = np.asarray(ar) + 1j * np.asarray(ai)
     ref = np.linalg.cholesky(A)
     assert np.max(np.abs(F1 - ref)) < 1e-10
-
-
-def test_uniform_device64_strictly_below_one():
-    # exact 53-bit construction cannot round to 1.0 (#6); CPU fallback
-    # also honors the bound — the on-chip path is covered by smoke_tpu
-    from cholesky_tpu.rng.pallas_prng import uniform_device64
-    u = np.asarray(uniform_device64(3, (128, 128)))
-    assert u.max() < 1.0 and u.min() >= 0.0
